@@ -1,0 +1,378 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``mcseg_tpu_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout. It builds the port's CUDA kernels from the
+sources in the checkout (nvcc, sm_90a), holds every kernel against its plain
+PyTorch version on the card, drives the serving path at full width
+(DRN-D-38, RGB+HHA from raw depth, 40 classes, 640x480, batch 8, bf16,
+random weights from a seed) through ``make_serve_fn`` and ``evaluate``, and
+checks that the path launched the kernels. Every phase prints one JSON line
+and any failure raises (exit code != 0). The last lines are the kernel
+table, the card's name and power limit as nvidia-smi reports them, and
+``{"ok": true, "device": {...}}``.
+
+It exits non-zero without printing a result when CUDA is unavailable, and
+when ``mcseg_tpu_torch`` is not next to this file.
+"""
+
+import dataclasses
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
+H100_FP32_FLOPS = 67e12  # CUDA cores, no tensor cores
+H100_BF16_FLOPS = 989e12  # dense tensor cores
+KERNEL_SRC = "mcseg_tpu_torch/csrc/normalize_stack.cu"
+KERNEL_REPLACES = "mcseg_tpu/ops/pallas/normalize.py:84"
+B, H, W = 8, 480, 640
+N_REQUESTS = 6  # the first one also warms cuDNN up
+
+
+def emit(phase, **fields):
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def gpu_time_ms(fn, runs=50, per_run=10):
+    """Median over ``runs`` of the device time per call of ``fn``, by CUDA
+    events around ``per_run`` back-to-back calls. A sleep kernel queued
+    first keeps the card busy while the host enqueues, so host launch
+    overhead does not enter the device time."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        for _ in range(per_run):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / per_run)
+    return statistics.median(times)
+
+
+def phase_env():
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    emit("env", python=sys.version.split()[0], torch=torch.__version__,
+         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), nvidia_smi=smi,
+         tf32={"cudnn": False, "matmul": False},
+         note="TF32 off so that float32 comparisons are float32")
+    return smi.splitlines()[0]
+
+
+def phase_build():
+    from mcseg_tpu_torch.utils.cuda_build import build
+
+    t0 = time.perf_counter()
+    logs = build(["normalize_stack"])
+    secs = time.perf_counter() - t0
+    ptxas = {name: [ln.strip() for ln in log.splitlines()
+                    if "registers" in ln or "spill" in ln][:8]
+             for name, log in logs.items()}
+    emit("build", seconds=round(secs, 3), sources=sorted(logs), ptxas=ptxas)
+
+
+def _kernel_case(input_ch, rgb_float, out_dtype, flip_pattern, seed=0):
+    import torch
+
+    from mcseg_tpu_torch.ops.normalize import (
+        fused_normalize_stack, normalize_stack_reference)
+
+    e = {3: 0, 6: 3, 4: 1, 1: 1}[input_ch]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rgb = torch.randint(0, 256, (B, H, W, 3), generator=gen, device="cuda",
+                        dtype=torch.int32).to(torch.uint8)
+    if rgb_float:
+        rgb = rgb.to(torch.float32) / 255.0
+    extra = (torch.rand((B, H, W, e), generator=gen, device="cuda")
+             if e else None)
+    flip = torch.tensor([flip_pattern[i % len(flip_pattern)] for i in range(B)],
+                        dtype=torch.int32, device="cuda")
+    args = (rgb, extra, flip, input_ch, out_dtype)
+    before = fused_normalize_stack.launches
+    got = fused_normalize_stack(*args)
+    want = normalize_stack_reference(*args)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    max_err = float(err.max())
+    if out_dtype == torch.float32:
+        ok = max_err <= 1e-6
+    else:  # equal up to one bf16 ulp (8 significant bits)
+        ok = bool((err <= want.float().abs() * 2.0 ** -7).all())
+    if not ok:
+        raise AssertionError(f"normalize_stack input_ch={input_ch} rgb_float={rgb_float} "
+                             f"out={out_dtype}: max abs err {max_err}")
+    out_bytes = 2 if out_dtype == torch.bfloat16 else 4
+    n_px = B * H * W
+    rgb_bytes = 0 if input_ch == 1 else rgb.numel() * rgb.element_size()  # 1: unread
+    nbytes = rgb_bytes + n_px * e * 4 + B * 4 + n_px * input_ch * out_bytes
+    flops = n_px * (input_ch * 2 + (0 if rgb_float or input_ch == 1 else 3))
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    ops_ms = flops / H100_FP32_FLOPS * 1e3
+    kernel_ms = gpu_time_ms(lambda: fused_normalize_stack(*args))
+    plain_ms = gpu_time_ms(lambda: normalize_stack_reference(*args))
+    return {
+        "input_ch": input_ch, "rgb": "float32" if rgb_float else "uint8",
+        "out": "bfloat16" if out_dtype == torch.bfloat16 else "float32",
+        "flip": flip.tolist(), "max_abs_err": max_err,
+        "launches": fused_normalize_stack.launches - before,
+        "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes": nbytes,
+    }
+
+
+def phase_kernels():
+    import torch
+
+    from mcseg_tpu_torch.ops.normalize import fused_normalize_stack
+
+    cases = []
+    before = fused_normalize_stack.launches
+    for input_ch in (3, 6, 4, 1):
+        for rgb_float in (False, True):
+            for out_dtype in (torch.float32, torch.bfloat16):
+                cases.append(_kernel_case(input_ch, rgb_float, out_dtype, (0, 1)))
+    # the serving path's own case: uint8 RGB + HHA, bf16 out, no flip
+    main = _kernel_case(6, False, torch.bfloat16, (0,), seed=1)
+    cases.append(main)
+    emit("kernels", kernels=[{"name": "fused_normalize_stack", "route": "cuda",
+                              "source": KERNEL_SRC, "replaces": KERNEL_REPLACES,
+                              "shape": [B, H, W], "cases": cases}],
+         comparison_launches=fused_normalize_stack.launches - before)
+    return main
+
+
+def _serve_config(dtype):
+    from mcseg_tpu_torch.core.config import DataConfig, ExperimentConfig, ModelConfig
+
+    return ExperimentConfig(
+        model=ModelConfig(net="drn_d_38", input_ch=6, n_class=40, dtype=dtype,
+                          upsample="convt"),
+        data=DataConfig(src_dataset="synthetic", tgt_dataset="synthetic_shifted",
+                        batch_size=B, test_img_shape=(W, H), input_ch=6,
+                        hha_on_device=True))
+
+
+def _breakdown(cfg, params, request):
+    """Device time of the serving path's stages on one request (CUDA
+    events; the stages run eagerly one after another as in serving)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from mcseg_tpu_torch.core.device import compute_context
+    from mcseg_tpu_torch.eval.tester import _averaged_head_params
+    from mcseg_tpu_torch.models.factory import get_models
+    from mcseg_tpu_torch.ops.hha import depth_to_hha_batch
+    from mcseg_tpu_torch.ops.normalize import fused_normalize_stack
+    from mcseg_tpu_torch.ops.upsample import upsample_bilinear_convt
+
+    dev = torch.device("cuda")
+    g, head, _ = get_models(cfg.model)
+    g.load_state_dict(params["G"])
+    head.load_state_dict(_averaged_head_params(params["F1"], params["F2"], torch.bfloat16))
+    g, head = (m.to(dev).to(memory_format=torch.channels_last).eval() for m in (g, head))
+    image = torch.as_tensor(request["image"]).to(dev)
+    depth = torch.as_tensor(request["depth"]).to(dev)
+    flip = torch.zeros(B, dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        extra = depth_to_hha_batch(depth) / 255.0
+        img = fused_normalize_stack(image, extra, flip, 6, torch.bfloat16)
+        x = img.permute(0, 3, 1, 2)
+        with compute_context(torch.bfloat16, dev):
+            feat = g(x)
+
+        def head_argmax():
+            with compute_context(torch.bfloat16, dev):
+                return head(feat).argmax(1)
+
+        def trunk():
+            with compute_context(torch.bfloat16, dev):
+                return g(x)
+
+        with compute_context(torch.bfloat16, dev):
+            score = head.score(feat)
+            logits = head(feat)
+        with FlopCounterMode(display=False) as counter:
+            trunk()
+        trunk_ms = gpu_time_ms(trunk, runs=10, per_run=2)
+        trunk_tflop = counter.get_total_flops() / 1e12
+        return {
+            "trunk_ms": trunk_ms,
+            "trunk_tflop": trunk_tflop,
+            "trunk_tflop_per_s": trunk_tflop / trunk_ms * 1e3,
+            "trunk_share_of_bf16_peak": trunk_tflop / trunk_ms * 1e3 / H100_BF16_FLOPS * 1e12,
+            "hha_ms": gpu_time_ms(lambda: depth_to_hha_batch(depth) / 255.0, runs=10, per_run=2),
+            "normalize_ms": gpu_time_ms(
+                lambda: fused_normalize_stack(image, extra, flip, 6, torch.bfloat16),
+                runs=10, per_run=2),
+            "head_upsample_argmax_ms": gpu_time_ms(head_argmax, runs=10, per_run=2),
+            "of_which_convt_upsample_ms": gpu_time_ms(
+                lambda: upsample_bilinear_convt(score, 8), runs=10, per_run=2),
+            "of_which_argmax_ms": gpu_time_ms(lambda: logits.argmax(1), runs=10, per_run=2),
+        }
+
+
+def phase_serve(smi_line):
+    import torch
+
+    from mcseg_tpu_torch.data.datasets import get_dataset, stack_samples
+    from mcseg_tpu_torch.eval.serving import make_serve_fn
+    from mcseg_tpu_torch.models.factory import init_models
+    from mcseg_tpu_torch.ops.hha import depth_to_hha_batch
+    from mcseg_tpu_torch.ops.normalize import (
+        fused_normalize_stack, normalize_stack_reference)
+    from mcseg_tpu_torch.ops.preprocess import make_eval_preprocess
+
+    cfg = _serve_config("bfloat16")
+    params = init_models(cfg.model, torch.Generator().manual_seed(0))
+    ds = get_dataset("synthetic_shifted", cfg.data, "val")
+    requests = []
+    for r in range(N_REQUESTS):
+        raw = stack_samples(ds, range(r * B, (r + 1) * B))
+        requests.append({"image": raw["image"], "depth": raw["depth"]})
+
+    serve = make_serve_fn(cfg, params, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    fused_normalize_stack.launches = 0  # count only the main path from here
+    times = []
+    for i, req in enumerate(requests):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred = serve(req)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if fused_normalize_stack.launches != i + 1:
+            raise AssertionError(f"request {i}: normalize kernel launched "
+                                 f"{fused_normalize_stack.launches} times in total")
+        if tuple(pred.shape) != (B, H, W) or pred.dtype != torch.int32:
+            raise AssertionError(f"pred {tuple(pred.shape)} {pred.dtype}")
+        lo, hi = int(pred.min()), int(pred.max())
+        if lo < 0 or hi >= cfg.model.n_class:
+            raise AssertionError(f"pred values outside [0, {cfg.model.n_class}): {lo}..{hi}")
+    launches = fused_normalize_stack.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms = statistics.median(times[1:])
+
+    # one request in float32: the kernel's stacked input equals the plain
+    # version on the same preprocessed planes
+    cfg32 = _serve_config("float32")
+    dev = torch.device("cuda")
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in requests[0].items()}
+    with torch.inference_mode():
+        stacked, _ = make_eval_preprocess(cfg32.data, torch.float32)(batch)
+        extra = depth_to_hha_batch(batch["depth"]) / 255.0
+        plain = normalize_stack_reference(batch["image"], extra,
+                                          torch.zeros(B, dtype=torch.int32, device=dev), 6)
+    stack_err = float((stacked - plain).abs().max())
+    if stack_err > 1e-6:
+        raise AssertionError(f"fp32 stacked input differs from plain version by {stack_err}")
+    pred32 = make_serve_fn(cfg32, params, device="cuda")(requests[0])
+    pred16 = serve(requests[0])
+    agree_bf16_fp32 = float((pred32 == pred16).float().mean())
+
+    # a small input against the plain CPU path (float32 both sides, TF32 off)
+    small = {k: v[:2, :48, :64].copy() for k, v in requests[0].items()}
+    cfg_small = dataclasses.replace(
+        cfg32, data=dataclasses.replace(cfg32.data, test_img_shape=(64, 48)))
+    p_gpu = make_serve_fn(cfg_small, params, device="cuda")(small).cpu().numpy()
+    p_cpu = make_serve_fn(cfg_small, params, device="cpu")(small).numpy()
+    agree_small = float((p_gpu == p_cpu).mean())
+    if agree_small < 0.999:
+        raise AssertionError(f"card vs CPU preds agree on only {agree_small:.4f} of pixels")
+
+    breakdown = _breakdown(cfg, params, requests[1])
+    emit("serve", net=cfg.model.net, input_ch=6, n_class=40, batch=B, hw=[H, W],
+         dtype="bfloat16", requests=len(requests), launches=launches,
+         ms_per_request=ms, images_per_s=B / ms * 1e3,
+         ms_per_request_all=times, peak_mem_gb=peak_gb,
+         fp32_stack_max_abs_err=stack_err, pred_agree_bf16_vs_fp32=agree_bf16_fp32,
+         pred_agree_card_vs_cpu_small=agree_small,
+         breakdown_ms=breakdown, card=smi_line,
+         note="random weights; card numbers beside the card's name and power limit")
+    return launches
+
+
+def phase_eval():
+    import numpy as np
+    import torch
+
+    from mcseg_tpu_torch.data.datasets import get_dataset
+    from mcseg_tpu_torch.eval.tester import evaluate
+    from mcseg_tpu_torch.models.factory import init_models
+    from mcseg_tpu_torch.ops.normalize import fused_normalize_stack
+
+    cfg = _serve_config("bfloat16")
+    params = init_models(cfg.model, torch.Generator().manual_seed(0))
+    ds = get_dataset("synthetic_shifted", cfg.data, "val")
+    fused_normalize_stack.launches = 0
+    t0 = time.perf_counter()
+    miou, hist, _ = evaluate(params, cfg, dataset=ds, max_batches=2,
+                             print_table=False, device="cuda")
+    secs = time.perf_counter() - t0
+    n_valid = sum(int((ds[i]["label"] != 0).sum()) for i in range(2 * B))  # raw 0 = void
+    if int(hist.sum()) != n_valid:
+        raise AssertionError(f"hist counts {int(hist.sum())} pixels, labels have {n_valid}")
+    if not np.isfinite(miou):
+        raise AssertionError(f"mIoU {miou}")
+    if fused_normalize_stack.launches != 2:
+        raise AssertionError(f"eval launched the kernel {fused_normalize_stack.launches} times")
+    emit("eval", batches=2, batch=B, miou=miou, hist_pixels=int(hist.sum()),
+         launches=fused_normalize_stack.launches, seconds=secs,
+         note="random weights: the mIoU value is meaningless, the plumbing is checked")
+
+
+def main():
+    try:
+        import torch
+    except ImportError:
+        sys.exit("chip_smoke: torch is not installed")
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: CUDA is not available; this needs an NVIDIA card")
+    import mcseg_tpu_torch
+
+    pkg = os.path.dirname(os.path.abspath(mcseg_tpu_torch.__file__))
+    if pkg != os.path.join(HERE, "mcseg_tpu_torch"):
+        sys.exit(f"chip_smoke: mcseg_tpu_torch comes from {pkg}, not this checkout")
+
+    smi_line = phase_env()
+    phase_build()
+    main_case = phase_kernels()
+    launches = phase_serve(smi_line)
+    if launches == 0:
+        raise AssertionError("the serving path never launched fused_normalize_stack")
+    phase_eval()
+    print(json.dumps({"kernels": [{
+        "name": "fused_normalize_stack", "route": "cuda", "source": KERNEL_SRC,
+        "replaces": KERNEL_REPLACES, "launches": launches,
+        "max_abs_err": main_case["max_abs_err"], "ms": main_case["kernel_ms"],
+        "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
+        "bound_by": main_case["bound_by"], "library_ms": None}]}), flush=True)
+    print(smi_line, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,148 @@
+"""Dilated Residual Networks (arch D, BasicBlock) — the trunk G.
+
+The port of the JAX package's ``models/drn.py`` (Yu, Koltun, Funkhouser,
+CVPR 2017), output stride 8:
+
+  * level 0: 7x7 stem; levels 1-2: plain conv stages (stride 1, then 2);
+  * levels 3-4: residual BasicBlocks with stride 2;
+  * levels 5-6: dilation 2 / 4 instead of stride;
+  * levels 7-8: degridding conv stages with dilation 2, then 1.
+
+Submodules are named after the flax parameter tree (``conv0``, ``bn0``,
+``layer1``..``layer8``, ``block{i}``, ``conv{i}``/``bn{i}``,
+``conv1/bn1/conv2/bn2/proj_conv/proj_bn``), so JAX weights map by name
+(``utils/jax_weights.py``). Padding is symmetric ``dilation * (k // 2)``,
+BatchNorm eps 1e-5 and momentum 0.1 (torch terms). NCHW in and out.
+Arch C, Bottleneck trunks and drn_d_54/105 come in a later slice.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+from torch import nn
+
+BN_EPS = 1e-5
+BN_MOMENTUM = 0.1
+CHANNELS = (16, 32, 64, 128, 256, 512, 512, 512)  # levels 1-8
+
+
+def _conv(cin: int, cout: int, kernel: int, stride: int = 1,
+          dilation: int = 1) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, kernel, stride=stride,
+                     padding=dilation * (kernel // 2), dilation=dilation,
+                     bias=False)
+
+
+def _bn(c: int) -> nn.BatchNorm2d:
+    return nn.BatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+
+class ConvStage(nn.Module):
+    """n x (conv3x3 -> BN -> ReLU); levels 1-2 and 7-8 of arch D."""
+
+    def __init__(self, cin: int, features: int, n_layers: int, stride: int = 1,
+                 dilation: int = 1):
+        super().__init__()
+        self.n_layers = n_layers
+        for i in range(n_layers):
+            self.add_module(f"conv{i}", _conv(cin if i == 0 else features, features,
+                                              3, stride if i == 0 else 1, dilation))
+            self.add_module(f"bn{i}", _bn(features))
+
+    def forward(self, x):
+        for i in range(self.n_layers):
+            x = getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x))
+            x = torch.relu(x)
+        return x
+
+
+class BasicBlock(nn.Module):
+    """Two 3x3 convs (dilation each its own) + identity or 1x1 projection."""
+
+    def __init__(self, cin: int, features: int, stride: int = 1,
+                 dilation: Tuple[int, int] = (1, 1)):
+        super().__init__()
+        self.conv1 = _conv(cin, features, 3, stride, dilation[0])
+        self.bn1 = _bn(features)
+        self.conv2 = _conv(features, features, 3, 1, dilation[1])
+        self.bn2 = _bn(features)
+        self.needs_proj = stride != 1 or cin != features
+        if self.needs_proj:
+            self.proj_conv = _conv(cin, features, 1, stride)
+            self.proj_bn = _bn(features)
+
+    def forward(self, x):
+        y = torch.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        y = y + (self.proj_bn(self.proj_conv(x)) if self.needs_proj else x)
+        return torch.relu(y)
+
+
+class ResStage(nn.Module):
+    """A level of BasicBlocks. Entering a dilation regime with
+    ``new_level=True`` ramps the first conv to half the dilation; levels
+    5-6 use ``new_level=False`` (full dilation from the first block)."""
+
+    def __init__(self, cin: int, features: int, n_blocks: int, stride: int = 1,
+                 dilation: int = 1, new_level: bool = True):
+        super().__init__()
+        self.n_blocks = n_blocks
+        if dilation == 1:
+            first_dil = (1, 1)
+        else:
+            first_dil = (dilation // 2 if new_level else dilation, dilation)
+        self.block0 = BasicBlock(cin, features, stride, first_dil)
+        for i in range(1, n_blocks):
+            self.add_module(f"block{i}", BasicBlock(
+                features, features, 1, (dilation, dilation)))
+
+    def forward(self, x):
+        for i in range(self.n_blocks):
+            x = getattr(self, f"block{i}")(x)
+        return x
+
+
+class DRN(nn.Module):
+    """Arch-D DRN trunk: [B, input_ch, H, W] -> [B, 512, H/8, W/8]."""
+
+    def __init__(self, layers: Sequence[int], input_ch: int = 3):
+        super().__init__()
+        ch, L = CHANNELS, layers
+        self.out_dim = ch[-1]
+        self.conv0 = _conv(input_ch, ch[0], 7)
+        self.bn0 = _bn(ch[0])
+        self.layer1 = ConvStage(ch[0], ch[0], L[0], stride=1)
+        self.layer2 = ConvStage(ch[0], ch[1], L[1], stride=2)
+        self.layer3 = ResStage(ch[1], ch[2], L[2], stride=2)
+        self.layer4 = ResStage(ch[2], ch[3], L[3], stride=2)
+        self.layer5 = ResStage(ch[3], ch[4], L[4], dilation=2, new_level=False)
+        self.layer6 = ResStage(ch[4], ch[5], L[5], dilation=4, new_level=False)
+        self.layer7 = ConvStage(ch[5], ch[6], L[6], dilation=2)
+        self.layer8 = ConvStage(ch[6], ch[7], L[7], dilation=1)
+
+    def forward(self, x):
+        x = torch.relu(self.bn0(self.conv0(x)))
+        for i in range(1, 9):
+            x = getattr(self, f"layer{i}")(x)
+        return x
+
+
+_DRN_ZOO = {
+    # drn_d_14 is not a published variant: one block per residual level,
+    # the same stage structure at about half the graph — for cheap tests.
+    "drn_d_14": (1, 1, 1, 1, 1, 1, 1, 1),
+    "drn_d_22": (1, 1, 2, 2, 2, 2, 1, 1),
+    "drn_d_38": (1, 1, 3, 4, 6, 3, 1, 1),
+}
+
+
+def drn_variants() -> Tuple[str, ...]:
+    return tuple(_DRN_ZOO)
+
+
+def build_drn(net: str, input_ch: int = 3) -> DRN:
+    if net not in _DRN_ZOO:
+        raise ValueError(f"unknown DRN variant {net!r}; options: {sorted(_DRN_ZOO)}")
+    return DRN(_DRN_ZOO[net], input_ch=input_ch)

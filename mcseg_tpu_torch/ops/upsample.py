@@ -1,0 +1,52 @@
+"""Fixed bilinear upsampling of NCHW logits.
+
+Two weight conventions, as in the JAX package:
+  * 'resize' — half-pixel centres with edge clamp (``F.interpolate``
+    bilinear, ``align_corners=False``);
+  * 'convt'  — the classic FCN fixed-bilinear ConvTranspose2d
+    (fill_up_weights, k = 2f, stride f, pad f/2), run as a depthwise
+    ``F.conv_transpose2d``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def bilinear_kernel(kernel_size: int, dtype=np.float32) -> np.ndarray:
+    """The fill_up_weights [k, k] bilinear tap pattern."""
+    f = int(np.ceil(kernel_size / 2.0))
+    c = (2 * f - 1 - f % 2) / (2.0 * f)
+    og = np.ogrid[:kernel_size, :kernel_size]
+    k = (1 - np.abs(og[0] / f - c)) * (1 - np.abs(og[1] / f - c))
+    return k.astype(dtype)
+
+
+def upsample_bilinear_convt(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """Depthwise ``ConvTranspose2d(C, C, 2f, stride=f, padding=f//2,
+    groups=C)`` with fill_up_weights: [B,C,h,w] -> [B,C,f*h,f*w]."""
+    c = x.shape[1]
+    k = 2 * factor
+    taps = torch.from_numpy(bilinear_kernel(k, np.float64))
+    weight = taps.to(device=x.device, dtype=x.dtype).expand(c, 1, k, k).contiguous()
+    return F.conv_transpose2d(x, weight, stride=factor, padding=factor // 2,
+                              groups=c)
+
+
+def resize_bilinear_nchw(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Half-pixel bilinear resize with edge clamp (two taps, no antialias)."""
+    return F.interpolate(x, size=(out_h, out_w), mode="bilinear",
+                         align_corners=False)
+
+
+def upsample_logits(x: torch.Tensor, factor: int, mode: str = "resize") -> torch.Tensor:
+    if factor == 1:
+        return x
+    if mode == "convt":
+        return upsample_bilinear_convt(x, factor)
+    if mode == "resize":
+        h, w = x.shape[2:]
+        return resize_bilinear_nchw(x, h * factor, w * factor)
+    raise ValueError(f"unknown upsample mode {mode!r}")

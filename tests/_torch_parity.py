@@ -1,0 +1,52 @@
+"""Shared helpers of the JAX-vs-port parity tests (tests/test_torch_*.py):
+seeded JAX parameters with non-trivial BatchNorm, and a JAX float64 block."""
+
+import contextlib
+import dataclasses
+
+import jax
+import numpy as np
+
+from mcseg_tpu.models.factory import init_models as jax_init_models
+
+
+@contextlib.contextmanager
+def x64():
+    """JAX float64 for the duration of the block (the fp64 oracles)."""
+    jax.config.update("jax_enable_x64", True)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_x64", False)
+
+
+def _randomize_bn(params, stats, rng):
+    """BN scale/bias/mean/var drawn away from the identity (init leaves BN
+    a no-op, which would hide a wrong mapping of the statistics)."""
+    for k, v in params.items():
+        if isinstance(v, dict):
+            if "scale" in v:
+                v["scale"] = rng.uniform(0.75, 1.25, v["scale"].shape).astype(np.float32)
+                v["bias"] = rng.normal(0.0, 0.1, v["bias"].shape).astype(np.float32)
+                stats[k]["mean"] = rng.normal(0.0, 0.1, v["scale"].shape).astype(np.float32)
+                stats[k]["var"] = rng.uniform(0.75, 1.25, v["scale"].shape).astype(np.float32)
+            else:
+                _randomize_bn(v, stats.get(k, {}), rng)
+
+
+def jax_params(model_cfg, img_hw=(48, 64), seed=0):
+    """(params, batch_stats) as nested dicts of numpy arrays: the JAX
+    initializer's tree, BN statistics randomized, head biases non-zero."""
+    # the tree does not depend on the compute dtype; float32 init avoids
+    # float64 outside an x64 block
+    v = jax_init_models(dataclasses.replace(model_cfg, dtype="float32"),
+                        jax.random.key(seed), img_shape=img_hw)
+    params = jax.tree.map(np.asarray, v["params"])
+    stats = jax.tree.map(np.asarray, v["batch_stats"])
+    params = {k: dict(p) for k, p in params.items()}
+    rng = np.random.RandomState(seed)
+    _randomize_bn(params["G"], stats["G"], rng)
+    for head in ("F1", "F2"):
+        score = params[head]["score"]
+        score["bias"] = rng.normal(0.0, 0.1, score["bias"].shape).astype(np.float32)
+    return params, stats

@@ -1,0 +1,53 @@
+"""The port stands alone: importing every module of ``mcseg_tpu_torch``
+loads neither ``jax`` nor ``mcseg_tpu``, and its entry points refuse to
+run on a CUDA device that is not there (no silent CPU fallback).
+
+Runs in a fresh interpreter, since this test process has JAX loaded."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_SCRIPT = r"""
+import importlib, pkgutil, sys
+import torch
+import mcseg_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(mcseg_tpu_torch.__path__, "mcseg_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "mcseg_tpu"))
+assert not leaked, leaked
+assert len(mods) >= 15, mods
+
+from mcseg_tpu_torch.core.config import DataConfig, ExperimentConfig, ModelConfig
+from mcseg_tpu_torch.eval.serving import make_serve_fn
+from mcseg_tpu_torch.eval.tester import evaluate
+from mcseg_tpu_torch.models.factory import init_models
+
+cfg = ExperimentConfig(model=ModelConfig(net="drn_d_14", input_ch=6, n_class=8),
+                       data=DataConfig(tgt_dataset="synthetic_shifted",
+                                       test_img_shape=(16, 16), input_ch=6))
+params = init_models(cfg.model, torch.Generator().manual_seed(0))
+if not torch.cuda.is_available():
+    for call in (lambda: make_serve_fn(cfg, params),
+                 lambda: make_serve_fn(cfg, params, device="cuda"),
+                 lambda: evaluate(params, cfg, max_batches=1)):
+        try:
+            call()
+        except RuntimeError as e:
+            assert "CUDA is not available" in str(e), e
+        else:
+            raise AssertionError("entry point ran without CUDA")
+print("ISOLATED", len(mods))
+"""
+
+
+def test_port_imports_no_jax_and_needs_cuda_by_default():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "ISOLATED" in out.stdout
