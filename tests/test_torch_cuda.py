@@ -18,6 +18,9 @@ import torch
 from mcseg_tpu_torch.ops.normalize import fused_normalize_stack, normalize_stack_reference
 
 E_CH = {3: 0, 6: 3, 4: 1, 1: 1}
+# longer than one block's staging (48 KB of shared memory) in every instance:
+# the longest segment, input_ch 1 with bf16 out, holds 8176 pixels
+LONG_W = 8237
 
 
 @pytest.fixture
@@ -27,20 +30,28 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("input_ch", [3, 6, 4, 1])
-@pytest.mark.parametrize("rgb_float", [False, True])
-def test_normalize_stack_kernel_matches_plain_version(cuda_device, input_ch, rgb_float):
-    rng = np.random.RandomState(4)
-    b, h, w = 3, 37, 300  # ragged last W-tile, odd H
-    rgb = torch.from_numpy(rng.randint(0, 256, (b, h, w, 3)).astype(np.uint8)).to(cuda_device)
+def _inputs(rng, device, input_ch, rgb_float, b, h, w):
+    rgb = torch.from_numpy(rng.randint(0, 256, (b, h, w, 3)).astype(np.uint8)).to(device)
     if rgb_float:
         rgb = rgb.float() / 255.0
     e = E_CH[input_ch]
-    extra = (torch.from_numpy(rng.rand(b, h, w, e).astype(np.float32)).to(cuda_device)
-             if e else None)
-    flip = torch.tensor([0, 1, 1], dtype=torch.int32, device=cuda_device)
+    extra = torch.from_numpy(rng.rand(b, h, w, e).astype(np.float32)).to(device) if e else None
+    return rgb, extra
+
+
+def _at_offset(t, offset_elems):
+    """A contiguous copy of ``t`` that starts ``offset_elems`` elements into
+    a larger buffer, so its rows are not 16-byte aligned."""
+    buf = torch.empty(t.numel() + offset_elems, dtype=t.dtype, device=t.device)
+    view = buf[offset_elems:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+def _assert_kernel_matches(rgb, extra, flip, input_ch):
     want = normalize_stack_reference(rgb, extra, flip, input_ch, torch.float32)
+    b, h, w, _ = rgb.shape
     for out_dtype in (torch.float32, torch.bfloat16):
         before = fused_normalize_stack.launches
         got = fused_normalize_stack(rgb, extra, flip, input_ch, out_dtype)
@@ -52,6 +63,56 @@ def test_normalize_stack_kernel_matches_plain_version(cuda_device, input_ch, rgb
             assert float(err.max()) <= 1e-6
         else:
             assert bool((err <= want.abs() * 2.0 ** -8).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [640, 300, 37, 16, 1])
+@pytest.mark.parametrize("input_ch", [3, 6, 4, 1])
+@pytest.mark.parametrize("rgb_float", [False, True])
+def test_normalize_stack_kernel_matches_plain_version(cuda_device, input_ch, rgb_float, w):
+    # odd H; ragged and unaligned rows at W 300, 37 and 1
+    rng = np.random.RandomState(4)
+    for b, flips in ((3, [0, 1, 1]), (1, [1])):
+        rgb, extra = _inputs(rng, cuda_device, input_ch, rgb_float, b, 37, w)
+        flip = torch.tensor(flips, dtype=torch.int32, device=cuda_device)
+        _assert_kernel_matches(rgb, extra, flip, input_ch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [640, 37])
+@pytest.mark.parametrize("input_ch", [3, 6, 4, 1])
+@pytest.mark.parametrize("rgb_float", [False, True])
+def test_normalize_stack_kernel_unaligned_inputs(cuda_device, input_ch, rgb_float, w):
+    # uint8 RGB 1 byte into its buffer, float RGB and the extra planes 4 bytes
+    rng = np.random.RandomState(5)
+    rgb, extra = _inputs(rng, cuda_device, input_ch, rgb_float, 2, 5, w)
+    rgb = _at_offset(rgb, 1)
+    if extra is not None:
+        extra = _at_offset(extra, 1)
+    flip = torch.tensor([1, 0], dtype=torch.int32, device=cuda_device)
+    _assert_kernel_matches(rgb, extra, flip, input_ch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("input_ch", [3, 6, 4, 1])
+@pytest.mark.parametrize("rgb_float", [False, True])
+def test_normalize_stack_kernel_rows_longer_than_staging(cuda_device, input_ch, rgb_float):
+    rng = np.random.RandomState(6)
+    rgb, extra = _inputs(rng, cuda_device, input_ch, rgb_float, 2, 3, LONG_W)
+    flip = torch.tensor([0, 1], dtype=torch.int32, device=cuda_device)
+    _assert_kernel_matches(rgb, extra, flip, input_ch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("input_ch", [3, 6, 4, 1])
+@pytest.mark.parametrize("rgb_float", [False, True])
+def test_normalize_stack_kernel_many_rows_per_block(cuda_device, input_ch, rgb_float):
+    # short rows: a block stages several whole rows, flipped row by row; the
+    # spans are unaligned at W = 37 and the last block of a sample is short
+    rng = np.random.RandomState(7)
+    rgb, extra = _inputs(rng, cuda_device, input_ch, rgb_float, 2, 2500, 37)
+    flip = torch.tensor([1, 0], dtype=torch.int32, device=cuda_device)
+    _assert_kernel_matches(rgb, extra, flip, input_ch)
 
 
 @pytest.mark.cuda

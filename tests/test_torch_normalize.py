@@ -35,17 +35,24 @@ def _t(x):
     return None if x is None else torch.from_numpy(x)
 
 
-@pytest.mark.parametrize("input_ch", [3, 6, 4, 1])
-def test_plain_version_matches_jax_kernel_and_oracle(input_ch):
-    rgb, extra = _inputs(input_ch)
-    flip = np.array([0, 1], np.int32)
+# (b, h, w): the base shape, then the CUDA kernel's edge shapes (one sample,
+# odd H, a ragged unaligned row and a one-pixel row)
+_SHAPES = [((2, 16, 32), "{}"), ((1, 7, 37), "{}-b1h7w37"), ((1, 5, 1), "{}-b1h5w1")]
+
+
+@pytest.mark.parametrize("input_ch,shape", [
+    pytest.param(c, shape, id=fmt.format(c)) for shape, fmt in _SHAPES for c in (3, 6, 4, 1)])
+def test_plain_version_matches_jax_kernel_and_oracle(input_ch, shape):
+    b, h, w = shape
+    rgb, extra = _inputs(input_ch, b=b, h=h, w=w)
+    flip = np.array([0, 1] if b == 2 else [1], np.int32)
     got = fused_normalize_stack(_t(rgb), _t(extra), _t(flip), input_ch).numpy()
     jextra = None if extra is None else jnp.asarray(extra)
     pallas = np.asarray(jax_fused(jnp.asarray(rgb), jextra, jnp.asarray(flip),
                                   input_ch=input_ch, interpret=True))
     oracle = np.asarray(jax_reference(jnp.asarray(rgb), jextra, jnp.asarray(flip),
                                       input_ch))
-    assert got.shape == (2, 16, 32, input_ch) and got.dtype == np.float32
+    assert got.shape == (b, h, w, input_ch) and got.dtype == np.float32
     np.testing.assert_allclose(got, pallas, rtol=0, atol=1e-6)
     np.testing.assert_allclose(got, oracle, rtol=0, atol=1e-6)
 
