@@ -7,8 +7,10 @@ Run from the root of a checkout. It builds the port's CUDA kernels from the
 sources in the checkout (nvcc, sm_90a), holds every kernel against its plain
 PyTorch version on the card, drives the serving path at full width
 (DRN-D-38, RGB+HHA from raw depth, 40 classes, 640x480, batch 8, bf16,
-random weights from a seed) through ``make_serve_fn`` and ``evaluate``, and
-checks that the path launched the kernels. Every phase prints one JSON line
+random weights from a seed) through ``make_serve_fn`` and ``evaluate``, then
+the MCD training path at the same width (``num_k`` 4, synthetic ->
+synthetic_shifted) through the training iteration and ``train_adapt``, and
+checks that each path launched the kernels. Every phase prints one JSON line
 and any failure raises (exit code != 0), a ptxas spill included. Kernel
 times are L2-cold, as the serving path finds its inputs: each timing
 rotates over input sets that together move 3x the 50 MB L2, and a reading
@@ -39,6 +41,16 @@ KERNEL_SRC = "mcseg_tpu_torch/csrc/normalize_stack.cu"
 KERNEL_REPLACES = "mcseg_tpu/ops/pallas/normalize.py:84"
 B, H, W = 8, 480, 640
 N_REQUESTS = 6  # the first one also warms cuDNN up
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5  # MCD iterations
+# card against CPU, one float32 iteration at batch 2, 48x64 (_card_vs_cpu,
+# _iteration_errors). Each bound is 5-7x the difference measured on an
+# H100 80GB HBM3 (700 W): losses 3.0e-4, updates 6.7e-3, parameters
+# 9.3e-6, running means 1.4e-3 std, running variances 4.4e-3; the CPU's own
+# float32 iteration differs from float64 by as much (4.4e-4, 7.0e-3, 9.6e-6,
+# 1.2e-3, 4.6e-3): tiny-batch BN amplifies float32 rounding.
+CARD_VS_CPU_BOUNDS = {"loss": 2e-3, "update": 4e-2, "param": 5e-5,
+                      "running_mean": 1e-2, "running_var": 3e-2}
+DEVICE = "cuda"  # the card the training phase runs on
 
 
 def emit(phase, **fields):
@@ -188,6 +200,10 @@ def phase_kernels():
         for rgb_float in (False, True):
             for out_dtype in (torch.float32, torch.bfloat16):
                 cases.append(_kernel_case(input_ch, rgb_float, out_dtype, (0, 1)))
+    # the training path's case: float32 RGB + HHA after the crop, bf16 out,
+    # mixed flips (one of the cases above)
+    train_case = next(c for c in cases if c["input_ch"] == 6 and c["rgb"] == "float32"
+                      and c["out"] == "bfloat16")
     # the serving path's own case: uint8 RGB + HHA, bf16 out, no flip
     main = _kernel_case(6, False, torch.bfloat16, (0,), seed=1)
     cases.append(main)
@@ -195,7 +211,7 @@ def phase_kernels():
                               "source": KERNEL_SRC, "replaces": KERNEL_REPLACES,
                               "shape": [B, H, W], "cases": cases}],
          comparison_launches=fused_normalize_stack.launches - before)
-    return main
+    return main, train_case
 
 
 def _serve_config(dtype):
@@ -377,6 +393,306 @@ def phase_eval():
          note="random weights: the mIoU value is meaningless, the plumbing is checked")
 
 
+def _train_config(dtype, hw=None, batch=None, **train_kw):
+    """BASELINE config 4's training iteration (``bench.py:151``) on the
+    synthetic corpora: DRN-D-38, RGB+HHA, 40 classes, convt heads, SGD
+    (momentum 0.9, wd 2e-5) at lr 1e-3 with the poly schedule, num_k 4."""
+    from mcseg_tpu_torch.core.config import (
+        DataConfig, ExperimentConfig, ModelConfig, TrainConfig)
+
+    hw, batch = hw or (H, W), batch or B
+    return ExperimentConfig(
+        model=ModelConfig(net="drn_d_38", input_ch=6, n_class=40, dtype=dtype,
+                          upsample="convt"),
+        data=DataConfig(src_dataset="synthetic", tgt_dataset="synthetic_shifted",
+                        batch_size=batch, train_img_shape=(hw[1], hw[0]),
+                        test_img_shape=(hw[1], hw[0]), input_ch=6, hha_on_device=True),
+        train=TrainConfig(lr=1e-3, num_k=4, max_steps=100_000, seed=0, **train_kw))
+
+
+def _raw_pair(cfg, n, device):
+    """The first ``n`` train samples of source and target, on ``device``."""
+    import torch
+
+    from mcseg_tpu_torch.data.datasets import get_dataset, stack_samples
+
+    out = []
+    for name in (cfg.data.src_dataset, cfg.data.tgt_dataset):
+        raw = stack_samples(get_dataset(name, cfg.data, "train"), range(n))
+        out.append({k: torch.as_tensor(v).to(device) for k, v in raw.items()})
+    return out
+
+
+def _snapshot(state):
+    return {name: {k: v.detach().clone() for k, v in m.state_dict().items()}
+            for name, m in (("G", state.g), ("F1", state.f1), ("F2", state.f2))}
+
+
+def _small_iteration(dtype, device, params):
+    """One iteration at batch 2, 48x64 of full DRN-D-38 from ``params``:
+    (metrics, weights before, weights after), the weights on the CPU."""
+    import torch
+
+    from mcseg_tpu_torch.train.loops import make_adapt_iteration
+    from mcseg_tpu_torch.train.state import create_train_state
+
+    cfg = _train_config(dtype, hw=(48, 64), batch=2)
+    state = create_train_state(cfg.model, cfg.train, 0, device, params=params)
+    before = _snapshot(state)
+    src, tgt = _raw_pair(cfg, 2, device)
+    metrics = make_adapt_iteration(cfg)(state, src, tgt)
+
+    def cpu(snap):
+        return {n: {k: v.cpu().double() for k, v in sd.items() if v.is_floating_point()}
+                for n, sd in snap.items()}
+
+    return {k: float(v) for k, v in metrics.items()}, cpu(before), cpu(_snapshot(state))
+
+
+def _iteration_errors(got, ref):
+    """How far iteration ``got`` is from ``ref``: losses relative; each
+    module's parameter update (after - before) and its parameters by
+    relative L2 norm; BN running means in units of the feature's standard
+    deviation (a mean near 0 has no scale of its own), running variances
+    relative, both the largest over elements."""
+    (m_got, b_got, a_got), (m_ref, b_ref, a_ref) = got, ref
+    err = {"loss": max(abs(m_got[k] - m_ref[k]) / abs(m_ref[k])
+                       for k in ("loss_source", "loss_b", "loss_dis")),
+           "update": 0.0, "param": 0.0, "running_mean": 0.0, "running_var": 0.0}
+    for n, sd in a_ref.items():
+        d_num = d_den = p_num = p_den = 0.0
+        for k, want in sd.items():
+            if k.endswith("running_mean"):
+                z = (a_got[n][k] - want).abs() / sd[k.replace("mean", "var")].sqrt()
+                err["running_mean"] = max(err["running_mean"], float(z.max()))
+            elif k.endswith("running_var"):
+                rel = (a_got[n][k] - want).abs() / want
+                err["running_var"] = max(err["running_var"], float(rel.max()))
+            else:
+                upd_got, upd_ref = a_got[n][k] - b_got[n][k], want - b_ref[n][k]
+                d_num += float(((upd_got - upd_ref) ** 2).sum())
+                d_den += float((upd_ref ** 2).sum())
+                p_num += float(((a_got[n][k] - want) ** 2).sum())
+                p_den += float((want ** 2).sum())
+        err["update"] = max(err["update"], (d_num / d_den) ** 0.5)
+        err["param"] = max(err["param"], (p_num / p_den) ** 0.5)
+    return err
+
+
+def _card_vs_cpu():
+    """One float32 iteration (TF32 off) on the card and on the CPU from the
+    same weights, batches and draws, each also held against a float64 CPU
+    iteration: the card's error from float64 next to the CPU's own float32
+    error shows how much of the card-CPU difference is float32 rounding.
+    Returns (report, failures against CARD_VS_CPU_BOUNDS)."""
+    import torch
+
+    from mcseg_tpu_torch.models.factory import init_models
+
+    params = init_models(_train_config("float32").model, torch.Generator().manual_seed(0))
+    card32 = _small_iteration("float32", DEVICE, params)
+    cpu32 = _small_iteration("float32", "cpu", params)
+    cpu64 = _small_iteration("float64", "cpu", params)
+    report = {"card_fp32_vs_cpu_fp32": _iteration_errors(card32, cpu32),
+              "card_fp32_vs_cpu_fp64": _iteration_errors(card32, cpu64),
+              "cpu_fp32_vs_cpu_fp64": _iteration_errors(cpu32, cpu64),
+              "bounds": CARD_VS_CPU_BOUNDS, "metrics_card": card32[0],
+              "metrics_cpu": cpu32[0]}
+    failures = [f"{k} {report['card_fp32_vs_cpu_fp32'][k]:.3g} > {b}"
+                for k, b in CARD_VS_CPU_BOUNDS.items()
+                if not report["card_fp32_vs_cpu_fp32"][k] <= b]
+    return report, failures
+
+
+def _train_breakdown(iterate, state, src, tgt):
+    """Device time of each stage of one iteration, by CUDA events recorded
+    as the host reaches the end of each stage (median of 3 iterations);
+    a stage's time includes any wait of the card for the host inside it."""
+    import torch
+
+    names = ("preprocess", "A", "B", "C")
+    per_stage = {n: [] for n in names}
+    for _ in range(3):
+        events = [torch.cuda.Event(enable_timing=True)]
+        events[0].record()
+
+        def mark(name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+
+        iterate(state, src, tgt, mark)
+        torch.cuda.synchronize()
+        for n, a, b in zip(names, events, events[1:]):
+            per_stage[n].append(a.elapsed_time(b))
+    med = {n: statistics.median(v) for n, v in per_stage.items()}
+    return {"preprocess_both_batches": med["preprocess"], "step_a": med["A"],
+            "step_b": med["B"], "step_c_x4": med["C"]}
+
+
+def _train_profile(iterate, state, src, tgt, top=8):
+    """One iteration under ``torch.profiler``: the card's busy time (the sum
+    of kernel and copy times on its one stream) against the iteration's
+    wall time under the profiler, and the kernels that take the most."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        iterate(state, src, tgt)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side rows only: an operator's row repeats its kernels' time
+    rows = [r for r in prof.key_averages()
+            if r.device_type == torch.autograd.DeviceType.CUDA and r.self_device_time_total > 0]
+    busy_ms = sum(r.self_device_time_total for r in rows) / 1e3
+    rows.sort(key=lambda r: r.self_device_time_total, reverse=True)
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
+            "top_kernels": [{"name": r.key[:120], "ms": r.self_device_time_total / 1e3,
+                             "calls": r.count} for r in rows[:top]]}
+
+
+def _convt_fwd_bwd_ms(state, src, cfg):
+    """The convt upsample of one head, forward plus backward, at the step's
+    shape: [B, 40, H/8, W/8] bf16 scores -> [B, 40, H, W]."""
+    import torch
+
+    from mcseg_tpu_torch.core.device import compute_context
+    from mcseg_tpu_torch.ops.preprocess import make_train_preprocess
+    from mcseg_tpu_torch.ops.upsample import upsample_bilinear_convt
+
+    dev = torch.device(DEVICE)
+    flip = torch.zeros(B, dtype=torch.int32)
+    img, _ = make_train_preprocess(cfg.data, torch.bfloat16)(src, flip, flip, flip)
+    with torch.no_grad(), compute_context(torch.bfloat16, dev):
+        score = state.f1.score(state.g(img.permute(0, 3, 1, 2)))
+    score = score.detach().requires_grad_(True)
+    cot = torch.randn((B, 40, H, W), device=dev, dtype=score.dtype)
+
+    def fwd_bwd():
+        up = upsample_bilinear_convt(score, 8)
+        up.backward(cot)
+        return up
+
+    fwd = gpu_time_ms(lambda: upsample_bilinear_convt(score.detach(), 8), runs=5, per_run=2)
+    return fwd, gpu_time_ms(fwd_bwd, runs=5, per_run=2)
+
+
+def _run_loop(smi_line):
+    """``train_adapt`` for 2 iterations at full width with a checkpoint per
+    epoch, then ``evaluate`` of that checkpoint for one batch."""
+    import tempfile
+
+    import numpy as np
+
+    from mcseg_tpu_torch.eval.tester import evaluate
+    from mcseg_tpu_torch.ops.normalize import fused_normalize_stack
+    from mcseg_tpu_torch.train.loops import train_adapt
+    from mcseg_tpu_torch.utils.checkpoint import load_params
+    from mcseg_tpu_torch.utils.logging import JsonlLogger
+
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build"), prefix="train_") as out_dir:
+        cfg = _train_config("bfloat16", epochs=1, out_dir=out_dir, log_every=1)
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, max_samples=2 * B))
+        fused_normalize_stack.launches = 0
+        t0 = time.perf_counter()
+        state = train_adapt(cfg, logger=JsonlLogger(os.path.join(out_dir, "log.jsonl"), echo=False),
+                            device=DEVICE)
+        loop_s = time.perf_counter() - t0
+        loop_launches = fused_normalize_stack.launches
+        if state.step != 2 or loop_launches != 4:
+            raise AssertionError(f"train_adapt: {state.step} iterations, "
+                                 f"{loop_launches} kernel launches")
+        with open(os.path.join(out_dir, "log.jsonl")) as f:
+            logged = [json.loads(ln) for ln in f]
+        params, ckpt_cfg = load_params(os.path.join(out_dir, "last"))
+        fused_normalize_stack.launches = 0
+        miou, hist, _ = evaluate(params, ckpt_cfg, max_batches=1, print_table=False,
+                                 device=DEVICE)
+        if fused_normalize_stack.launches != 1 or not np.isfinite(miou) or hist.sum() == 0:
+            raise AssertionError(f"evaluate of the checkpoint: mIoU {miou}, "
+                                 f"{fused_normalize_stack.launches} launches")
+        ckpt_mb = os.path.getsize(os.path.join(out_dir, "last.pt")) / 1e6
+    return {"iterations": state.step, "seconds": loop_s, "launches": loop_launches,
+            "logged": logged, "checkpoint_mb": ckpt_mb, "eval_miou": miou,
+            "eval_launches": 1, "card": smi_line,
+            "note": "includes host decode of the synthetic corpora and two checkpoints"}
+
+
+def phase_train(smi_line):
+    import math
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from mcseg_tpu_torch.ops.normalize import fused_normalize_stack
+    from mcseg_tpu_torch.train.loops import make_adapt_iteration
+    from mcseg_tpu_torch.train.state import create_train_state
+
+    cfg = _train_config("bfloat16")
+    state = create_train_state(cfg.model, cfg.train, 0, DEVICE)
+    src, tgt = _raw_pair(cfg, B, DEVICE)  # staged on the card before timing
+    iterate = make_adapt_iteration(cfg)
+    before = _snapshot(state)
+    for _ in range(TRAIN_WARMUP):
+        iterate(state, src, tgt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_normalize_stack.launches = 0  # count only the main path from here
+    times, metrics = [], []
+    for i in range(TRAIN_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = iterate(state, src, tgt)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if fused_normalize_stack.launches != 2 * (i + 1):
+            raise AssertionError(f"iteration {i}: normalize kernel launched "
+                                 f"{fused_normalize_stack.launches} times in total")
+    launches = fused_normalize_stack.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    bad = [m for m in metrics if not all(math.isfinite(v) for v in m.values())]
+    if bad:
+        raise AssertionError(f"non-finite metrics: {bad}")
+    after = _snapshot(state)
+    unchanged = []
+    for name in ("G", "F1", "F2"):
+        for key, v in before[name].items():
+            if v.is_floating_point() and torch.equal(v, after[name][key]):
+                unchanged.append(f"{name}.{key}")
+    if unchanged:
+        raise AssertionError(f"not updated by training: {unchanged[:10]}")
+    ms = statistics.median(times)
+
+    breakdown = _train_breakdown(iterate, state, src, tgt)
+    convt_fwd, convt_fwd_bwd = _convt_fwd_bwd_ms(state, src, cfg)
+    breakdown["convt_upsample_one_head_fwd"] = convt_fwd
+    breakdown["convt_upsample_one_head_fwd_bwd"] = convt_fwd_bwd
+    with FlopCounterMode(display=False) as counter:
+        iterate(state, src, tgt)
+    trunk_tflop = sum(counter.get_flop_counts()["DRN"].values()) / 1e12
+    profile = _train_profile(iterate, state, src, tgt)
+    card_vs_cpu, failures = _card_vs_cpu()
+    emit("train", net=cfg.model.net, input_ch=6, n_class=40, batch=B, hw=[H, W],
+         dtype="bfloat16", num_k=cfg.train.num_k, upsample="convt",
+         warmup=TRAIN_WARMUP, iterations=TRAIN_TIMED, launches=launches,
+         launches_per_iteration=launches / TRAIN_TIMED,
+         ms_per_iteration=ms, ms_per_iteration_all=times,
+         images_per_s=2 * B / ms * 1e3, peak_mem_gb=peak_gb, metrics=metrics,
+         breakdown_ms=breakdown, profile=profile, trunk_tflop_per_iteration=trunk_tflop,
+         trunk_share_of_bf16_peak=trunk_tflop / ms * 1e3 / H100_BF16_FLOPS * 1e12,
+         card_vs_cpu=card_vs_cpu, loop=_run_loop(smi_line), card=smi_line,
+         note="device rate: raw batches staged on the card; images counted as "
+              "source plus target (2 x batch) per iteration; random weights")
+    if failures:
+        raise AssertionError(f"card vs CPU float32 iteration: {failures}")
+    return launches
+
+
 def main():
     try:
         import torch
@@ -392,18 +708,21 @@ def main():
 
     smi_line = phase_env()
     phase_build()
-    main_case = phase_kernels()
+    main_case, train_case = phase_kernels()
     launches = phase_serve(smi_line)
     if launches == 0:
         raise AssertionError("the serving path never launched fused_normalize_stack")
     phase_eval()
+    train_launches = phase_train(smi_line)
     print(json.dumps({"kernels": [{
         "name": "fused_normalize_stack", "route": "cuda", "source": KERNEL_SRC,
         "replaces": KERNEL_REPLACES, "launches": launches,
         "max_abs_err": main_case["max_abs_err"], "ms": main_case["kernel_ms"],
         "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"], "library_ms": None,
-        "share_of_bound": main_case["share_of_bound"]}]}), flush=True)
+        "share_of_bound": main_case["share_of_bound"],
+        "train_launches": train_launches, "train_case_ms": train_case["kernel_ms"],
+        "train_case_share_of_bound": train_case["share_of_bound"]}]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

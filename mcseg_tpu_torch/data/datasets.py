@@ -108,6 +108,21 @@ def get_dataset(name: str, cfg: DataConfig, split: str = "train"):
     return _CORPORA[key](cfg, split)
 
 
+class ZipDataset:
+    """A source and a target dataset paired sample by sample, ``len`` the
+    shorter of the two (the reference's zipped source/target loader)."""
+
+    def __init__(self, source, target):
+        self.source = source
+        self.target = target
+
+    def __len__(self) -> int:
+        return min(len(self.source), len(self.target))
+
+    def __getitem__(self, i: int):
+        return self.source[i], self.target[i]
+
+
 def stack_samples(dataset, indices) -> Dict[str, np.ndarray]:
     """Stack the samples at ``indices`` into [N, ...] batch arrays."""
     samples = [dataset[i] for i in indices]

@@ -12,7 +12,8 @@ Submodules are named after the flax parameter tree (``conv0``, ``bn0``,
 ``layer1``..``layer8``, ``block{i}``, ``conv{i}``/``bn{i}``,
 ``conv1/bn1/conv2/bn2/proj_conv/proj_bn``), so JAX weights map by name
 (``utils/jax_weights.py``). Padding is symmetric ``dilation * (k // 2)``,
-BatchNorm eps 1e-5 and momentum 0.1 (torch terms). NCHW in and out.
+BatchNorm eps 1e-5 and momentum 0.1 (torch terms), its running variance
+advanced as flax advances it (``BatchNorm2d``). NCHW in and out.
 Arch C, Bottleneck trunks and drn_d_54/105 come in a later slice.
 """
 
@@ -35,8 +36,30 @@ def _conv(cin: int, cout: int, kernel: int, stride: int = 1,
                      bias=False)
 
 
-def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose running variance advances with the *biased*
+    batch variance, as flax's BatchNorm does (torch uses the unbiased one).
+
+    The output is torch's own (cuDNN on the card). In training, the running
+    variance that torch wrote, ``(1-m)*rv_old + m*var*n/(n-1)``, is rescaled
+    in place to ``(1-m)*rv_old + m*var`` with ``n = B*H*W``. The state-dict
+    keys are those of ``nn.BatchNorm2d``."""
+
+    def forward(self, x):
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        n = x.numel() // x.shape[1]
+        kept = (1.0 - self.momentum) * self.running_var
+        y = super().forward(x)
+        # through .data: the batch_norm node holds running_var for its
+        # backward (which does not read it in training) and would refuse a
+        # tensor whose version moved
+        self.running_var.data.sub_(kept).mul_((n - 1) / n).add_(kept)
+        return y
+
+
+def _bn(c: int) -> BatchNorm2d:
+    return BatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
 class ConvStage(nn.Module):

@@ -1,6 +1,6 @@
-"""Eval preprocess on the device: raw planes -> normalized input stack.
+"""Preprocess on the device: raw planes -> normalized input stack.
 
-The eval half of the JAX package's ``ops/preprocess.py``:
+The port of the JAX package's ``ops/preprocess.py``. Eval:
 
   raw uint8 RGB [B,h,w,3] (+ float metres | uint16 mm depth [B,h,w], or a
   precomputed uint8 HHA plane)
@@ -11,8 +11,12 @@ The eval half of the JAX package's ``ops/preprocess.py``:
       -> fused normalize/stack (ops.normalize, the CUDA kernel on the card)
 
 Labels are remapped but not resized: mIoU is scored at the native label
-resolution against logits upsampled by the tester. The train half (random
-crop/flip) comes with the training slice.
+resolution against logits upsampled by the tester.
+
+Train (``make_train_preprocess``): the same planes, resized to a pre-crop
+canvas and cropped at per-sample offsets (bilinear for RGB and HHA, nearest
+for labels), then the per-sample flip and the normalize/stack in the same
+kernel. The random draws (``draw_augment``) are explicit inputs.
 """
 
 from __future__ import annotations
@@ -100,6 +104,163 @@ def make_eval_preprocess(cfg: DataConfig,
             extra = resize_bilinear(extra, target).contiguous()
         flip = torch.zeros(image.shape[0], dtype=torch.int32, device=image.device)
         img = fused_normalize_stack(rgb, extra, flip, cfg.input_ch, out_dtype)
+        return img, label
+
+    return preprocess
+
+
+def _positions(out_size: int, in_size: int, pre_size: int,
+               offsets: torch.Tensor) -> torch.Tensor:
+    """[B, out_size] source positions ``t(i) = (offset + i + 0.5) * in/pre
+    - 0.5`` of the canvas of ``pre_size`` cropped at ``offset``, on an axis
+    of ``in_size``. float32 in JAX's order of operations
+    (``ops/preprocess.py:_interp_matrix``), so that nearest indices agree
+    bit for bit near a tie."""
+    i = torch.arange(out_size, dtype=torch.float32, device=offsets.device)
+    scale = torch.tensor(in_size / pre_size, dtype=torch.float32, device=offsets.device)
+    return (offsets.to(torch.float32)[:, None] + i[None, :] + 0.5) * scale - 0.5
+
+
+def _taps(t: torch.Tensor, in_size: int):
+    """Two-tap bilinear sampling at t: (i0, i1, w1). Taps outside the axis
+    are clamped to its edge, which equals the JAX weights'
+    renormalization there."""
+    j0 = torch.floor(t)
+    w1 = t - j0
+    j0 = j0.long()
+    return j0.clamp(0, in_size - 1), (j0 + 1).clamp(0, in_size - 1), w1
+
+
+def _nearest(t: torch.Tensor, in_size: int) -> torch.Tensor:
+    return torch.floor(t + 0.5).clamp(0, in_size - 1).long()
+
+
+def _gather_rows(x: torch.Tensor, idx: torch.Tensor, dim: int) -> torch.Tensor:
+    """x [B, H, W, ...] sampled at per-sample indices idx [B, n] along
+    ``dim`` (1 = rows, 2 = columns)."""
+    shape = list(x.shape)
+    shape[dim] = idx.shape[1]
+    view = [idx.shape[0], 1, 1] + [1] * (x.dim() - 3)
+    view[dim] = idx.shape[1]
+    return torch.gather(x, dim, idx.view(view).expand(shape))
+
+
+def _lerp_axis(x: torch.Tensor, taps, dim: int) -> torch.Tensor:
+    i0, i1, w1 = taps
+    view = [w1.shape[0], 1, 1] + [1] * (x.dim() - 3)
+    view[dim] = w1.shape[1]
+    w1 = w1.view(view)
+    return _gather_rows(x, i0, dim) * (1.0 - w1) + _gather_rows(x, i1, dim) * w1
+
+
+def _crop(x: torch.Tensor, tops, lefts, hw: Tuple[int, int]) -> torch.Tensor:
+    """Per-sample window [top:top+h, left:left+w] of x [B, H, W, ...]."""
+    rows = tops.long()[:, None] + torch.arange(hw[0], device=x.device)
+    cols = lefts.long()[:, None] + torch.arange(hw[1], device=x.device)
+    return _gather_rows(_gather_rows(x, rows, 1), cols, 2)
+
+
+def _resize_nearest_labels(label: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
+    """``jax.image.resize(method='nearest')`` as XLA compiles it: index
+    floor((i + 0.5) * (in / out)) in float32 (XLA folds the source's
+    ``* in / out`` into one multiply by the float32 quotient, which moves
+    exact ties such as 43.5 * 72 / 58 = 54 to the index below)."""
+    out = label
+    for dim, n in ((1, hw[0]), (2, hw[1])):
+        m = label.shape[dim]
+        if m == n:
+            continue
+        scale = torch.tensor(np.float32(m) / np.float32(n), device=label.device)
+        pos = (torch.arange(n, dtype=torch.float32, device=label.device) + 0.5) * scale
+        out = out.index_select(dim, torch.floor(pos).long())
+    return out
+
+
+def pre_crop_canvas(cfg: DataConfig) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """((pre_h, pre_w), (h, w)): the canvas the crop is taken from, enlarged
+    by 1/sqrt(crop_scale_min) when random_crop is on, and the target."""
+    tw, th = cfg.train_img_shape  # reference flag order (W, H)
+    target = (th, tw)
+    if not cfg.random_crop:
+        return target, target
+    s = np.sqrt(cfg.crop_scale_min)
+    return (int(np.ceil(th / s)), int(np.ceil(tw / s))), target
+
+
+def draw_augment(gen: torch.Generator, b: int, pre: Tuple[int, int],
+                 target: Tuple[int, int], cfg: DataConfig):
+    """(tops, lefts, flip) for a batch of ``b``, int32 CPU tensors drawn
+    from ``gen``: crop offsets uniform over the canvas (0 when there is
+    nothing to crop), flips with probability 1/2 when random_flip is on."""
+    zeros = torch.zeros(b, dtype=torch.int32)
+    if cfg.random_crop and pre != target:
+        tops = torch.randint(0, pre[0] - target[0] + 1, (b,), generator=gen,
+                             dtype=torch.int32)
+        lefts = torch.randint(0, pre[1] - target[1] + 1, (b,), generator=gen,
+                              dtype=torch.int32)
+    else:
+        tops, lefts = zeros, zeros
+    flip = ((torch.rand(b, generator=gen) < 0.5).to(torch.int32)
+            if cfg.random_flip else zeros)
+    return tops, lefts, flip
+
+
+def make_train_preprocess(cfg: DataConfig,
+                          out_dtype: torch.dtype = torch.float32) -> Callable:
+    """Train preprocess: ``preprocess(batch, tops, lefts, flip) -> (img
+    [B,H,W,input_ch] out_dtype, label int32 [B,H,W] or None)``.
+
+    ``batch`` holds the raw planes on one device (uint8 'image' and 'label',
+    'depth' or 'hha'; a target batch has no 'label'); ``tops``/``lefts``
+    are the crop offsets on the pre-crop canvas and ``flip`` the per-sample
+    flags (``draw_augment``). Geometry, as in the JAX package
+    (``ops/preprocess.py:214``):
+
+      * the canvas upscales the decode size (every production train
+        config): RGB/255 and HHA/255 are sampled bilinearly at the cropped
+        canvas positions straight from the decode size (two-tap gathers
+        and lerps), labels at the nearest position;
+      * otherwise: resize to the canvas (antialiased along a downscaled
+        axis), labels nearest, then the crop.
+
+    RGB and HHA stay two float32 tensors, NHWC-contiguous, and go to
+    ``fused_normalize_stack`` with the flips; out_dtype rounds once there.
+    Labels are flipped with ``torch.where``."""
+    pre, target = pre_crop_canvas(cfg)
+    _, table, _, _ = get_label_spec(cfg.src_dataset)
+
+    def preprocess(batch: Dict[str, torch.Tensor], tops, lefts, flip):
+        image = batch["image"]
+        dev = image.device
+        label = batch.get("label")
+        if label is not None:
+            label = remap_labels(label, table)
+        rgb = image.to(torch.float32) / 255.0
+        extra = _extra_channels(batch, cfg.input_ch, cfg.hha_on_device)
+        h0, w0 = image.shape[1:3]
+        tops, lefts = tops.to(dev), lefts.to(dev)
+        if cfg.random_crop and pre != target and pre[0] >= h0 and pre[1] >= w0:
+            t_rows = _positions(target[0], h0, pre[0], tops)
+            t_cols = _positions(target[1], w0, pre[1], lefts)
+            rows, cols = _taps(t_rows, h0), _taps(t_cols, w0)
+            rgb = _lerp_axis(_lerp_axis(rgb, rows, 1), cols, 2)
+            if extra is not None:
+                extra = _lerp_axis(_lerp_axis(extra, rows, 1), cols, 2)
+            if label is not None:
+                label = _gather_rows(_gather_rows(label, _nearest(t_rows, h0), 1),
+                                     _nearest(t_cols, w0), 2)
+        else:
+            rgb = _crop(resize_bilinear(rgb, pre), tops, lefts, target)
+            if extra is not None:
+                extra = _crop(resize_bilinear(extra, pre), tops, lefts, target)
+            if label is not None:
+                label = _crop(_resize_nearest_labels(label, pre), tops, lefts, target)
+        flip = flip.to(device=dev, dtype=torch.int32)
+        if label is not None:
+            label = torch.where((flip > 0)[:, None, None], label.flip(-1), label)
+        img = fused_normalize_stack(rgb.contiguous(),
+                                    None if extra is None else extra.contiguous(),
+                                    flip, cfg.input_ch, out_dtype)
         return img, label
 
     return preprocess

@@ -1,0 +1,175 @@
+"""The MCD adaptation training loop.
+
+The port of the JAX package's ``train/loops.py`` ``train_adapt``: zipped
+(source, target) batches of raw planes go to the device, through the train
+preprocess (with the normalize kernel) and the MCD iteration. The crop and
+flip draws of iteration ``step`` come from a generator seeded by
+``(seed + 1, step)``, so a resumed run repeats an uninterrupted one.
+Around the iteration: the NaN guard at log points, a graceful stop on
+SIGTERM/SIGINT or after ``max_hours``, per-epoch checkpoints and resume.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import signal
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from mcseg_tpu_torch.core.config import ExperimentConfig
+from mcseg_tpu_torch.core.device import compute_dtype, resolve_device
+from mcseg_tpu_torch.data.datasets import ZipDataset, get_dataset
+from mcseg_tpu_torch.data.pipeline import batch_iterator
+from mcseg_tpu_torch.eval.tester import batch_to_device
+from mcseg_tpu_torch.ops.preprocess import (
+    draw_augment, make_train_preprocess, pre_crop_canvas)
+from mcseg_tpu_torch.train.mcd import make_mcd_step
+from mcseg_tpu_torch.train.state import MCDTrainState, create_train_state
+from mcseg_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from mcseg_tpu_torch.utils.logging import JsonlLogger, StepTimer, make_run_logger
+
+
+def augment_generator(seed: int, step: int) -> torch.Generator:
+    """The CPU generator of iteration ``step``'s crop and flip draws."""
+    mixed = np.random.SeedSequence([seed + 1, step]).generate_state(1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(mixed) & (2**63 - 1))
+
+
+def make_adapt_iteration(cfg: ExperimentConfig) -> Callable:
+    """``iterate(state, src, tgt, mark=None) -> metrics``: one training
+    iteration on batches of raw planes already on the state's device —
+    train preprocess of both (two launches of the normalize kernel), then
+    the MCD step. The target batch's labels are not read. ``mark`` is
+    passed to the step, and also called with 'preprocess' after both
+    preprocesses."""
+    dtype = compute_dtype(cfg.model.dtype)
+    pp = make_train_preprocess(
+        cfg.data, torch.bfloat16 if dtype == torch.bfloat16 else torch.float32)
+    step = make_mcd_step(cfg.train, cfg.model.uses_one_classifier, dtype)
+    pre, target = pre_crop_canvas(cfg.data)
+
+    def as_input(img):
+        # the NHWC-contiguous stack is NCHW in channels_last memory: no copy
+        x = img.permute(0, 3, 1, 2)
+        return x.to(torch.float64) if dtype == torch.float64 else x
+
+    def iterate(state: MCDTrainState, src, tgt, mark=None):
+        gen = augment_generator(cfg.train.seed, state.step)
+        b = src["image"].shape[0]
+        xs, ys = pp(src, *draw_augment(gen, b, pre, target, cfg.data))
+        xt, _ = pp({k: v for k, v in tgt.items() if k != "label"},
+                   *draw_augment(gen, b, pre, target, cfg.data))
+        if mark:
+            mark("preprocess")
+        return step(state, as_input(xs), ys, as_input(xt), mark)
+
+    return iterate
+
+
+def check_finite(metrics, step: int) -> None:
+    """NaN guard: fail with context instead of training on garbage."""
+    for k, v in metrics.items():
+        if not math.isfinite(float(v)):
+            raise FloatingPointError(
+                f"non-finite metric {k}={float(v)} at step {step}; "
+                "lower --lr or inspect the input pipeline")
+
+
+class GracefulStop:
+    """The first SIGTERM/SIGINT lets the running iteration finish, then the
+    loop writes its final checkpoint and returns; a second raises
+    KeyboardInterrupt. ``max_hours`` ends the run the same way."""
+
+    def install(self, max_hours: float = 0.0) -> "GracefulStop":
+        self._deadline = time.time() + max_hours * 3600 if max_hours else None
+        self.stop = False
+        self._prev = {}
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                self._prev[sig] = signal.signal(sig, self._handle)
+            except ValueError:  # not the main thread
+                pass
+        return self
+
+    def _handle(self, signum, frame):
+        if self.stop:
+            raise KeyboardInterrupt(f"second signal {signum}: hard stop")
+        self.stop = True
+        print(f"signal {signum}: finishing the current iteration, then "
+              "writing the final checkpoint and exiting", flush=True)
+
+    def expired(self) -> bool:
+        if self._deadline is not None and time.time() > self._deadline:
+            if not self.stop:
+                print("max_hours budget exhausted: writing the final "
+                      "checkpoint and exiting", flush=True)
+                self.stop = True
+            return True
+        return False
+
+    def restore(self) -> None:
+        for sig, h in self._prev.items():
+            signal.signal(sig, h)
+
+
+def train_adapt(cfg: ExperimentConfig, logger: Optional[JsonlLogger] = None,
+                max_iterations: Optional[int] = None,
+                on_epoch_end: Optional[Callable] = None,
+                device="cuda") -> MCDTrainState:
+    """MCD adaptation training on ``device``: ``cfg.train.epochs`` epochs
+    (or ``max_iterations``) over the zipped source and target corpora,
+    from ``cfg.train.resume`` when set. Writes ``ep<N>`` checkpoints every
+    ``checkpoint_every_epochs`` and ``last`` at the end into
+    ``cfg.train.out_dir``; returns the final state."""
+    dev = resolve_device(device)
+    out_dir = cfg.train.out_dir
+    os.makedirs(out_dir, exist_ok=True)
+    own_logger = logger is None
+    logger = logger or make_run_logger(cfg.train)
+
+    zipped = ZipDataset(get_dataset(cfg.data.src_dataset, cfg.data, cfg.data.split),
+                        get_dataset(cfg.data.tgt_dataset, cfg.data, cfg.data.split))
+    bs = cfg.data.batch_size
+    if cfg.train.resume:
+        state, _ = load_checkpoint(cfg.train.resume, dev, config=cfg)
+    else:
+        state = create_train_state(cfg.model, cfg.train, cfg.train.seed, dev)
+    iterate = make_adapt_iteration(cfg)
+    step0 = state.step
+    steps_per_epoch = max(len(zipped) // bs, 1)
+    # checkpoints fall on epoch boundaries; a mid-epoch step replays its
+    # epoch from the start
+    start_epoch = step0 // steps_per_epoch if cfg.train.resume else 0
+    stream = batch_iterator(zipped, bs, seed=cfg.train.seed, epochs=cfg.train.epochs,
+                            start_epoch=start_epoch)
+    timer = StepTimer()
+    stop = GracefulStop().install(cfg.train.max_hours)
+    try:
+        for i, (src_raw, tgt_raw) in enumerate(stream):
+            if stop.stop or (i > 0 and stop.expired()) or (
+                    max_iterations is not None and i >= max_iterations):
+                break
+            metrics = iterate(state, batch_to_device(src_raw, dev),
+                              batch_to_device(tgt_raw, dev))
+            timer.tick(bs)
+            if i % cfg.train.log_every == 0:
+                check_finite(metrics, step0 + i)
+                logger.log({"step": step0 + i, **metrics,
+                            "img_per_sec": timer.items_per_sec})
+            if (i + 1) % steps_per_epoch == 0:
+                epoch = start_epoch + (i + 1) // steps_per_epoch
+                if (cfg.train.checkpoint_every_epochs > 0
+                        and epoch % cfg.train.checkpoint_every_epochs == 0):
+                    save_checkpoint(os.path.join(out_dir, f"ep{epoch}"), state, cfg)
+                if on_epoch_end:
+                    on_epoch_end(epoch, state)
+    finally:
+        stop.restore()
+        if own_logger:
+            logger.close()
+    save_checkpoint(os.path.join(out_dir, "last"), state, cfg)
+    return state

@@ -1,4 +1,4 @@
-"""Carry JAX/flax weights across to the port's state dicts.
+"""Carry JAX/flax weights and optimizer state to and from the port.
 
 ``params_from_jax(params, batch_stats)`` takes the JAX trees as nested
 dicts of numpy arrays (``{"G": ..., "F1": ..., "F2": ...}`` each) and
@@ -10,7 +10,9 @@ module names, which follow the flax tree:
         ``mean``/``var`` (batch_stats) -> ``running_mean``/``running_var``
 
 It raises on any tensor it cannot place and on any BN that lacks its
-parameters or its statistics.
+parameters or its statistics. ``params_to_jax`` is its inverse, and
+``opt_state_from_jax`` carries an optax ``trace`` (SGD momentum), a tree
+shaped like the parameters, into ``torch.optim.SGD``'s momentum buffers.
 """
 
 from __future__ import annotations
@@ -32,12 +34,11 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
     return out
 
 
-def _module_state(params: Mapping, stats: Mapping) -> Dict[str, torch.Tensor]:
-    p = _flatten(params)
-    s = _flatten(stats)
+def _param_tensors(params: Mapping):
+    """Parameter-shaped JAX tree -> ({state-dict key: tensor}, BN modules)."""
     sd: Dict[str, torch.Tensor] = {}
     bn_modules = set()
-    for path, arr in p.items():
+    for path, arr in _flatten(params).items():
         mod, _, leaf = path.rpartition(".")
         prefix = f"{mod}." if mod else ""
         if leaf == "kernel":
@@ -52,6 +53,12 @@ def _module_state(params: Mapping, stats: Mapping) -> Dict[str, torch.Tensor]:
             sd[prefix + "bias"] = torch.from_numpy(np.array(arr))
         else:
             raise KeyError(f"unmatched JAX parameter {path!r}")
+    return sd, bn_modules
+
+
+def _module_state(params: Mapping, stats: Mapping) -> Dict[str, torch.Tensor]:
+    sd, bn_modules = _param_tensors(params)
+    s = _flatten(stats)
     for path, arr in s.items():
         mod, _, leaf = path.rpartition(".")
         prefix = f"{mod}." if mod else ""
@@ -79,3 +86,54 @@ def params_from_jax(params: Mapping, batch_stats: Mapping) -> Dict[str, Dict[str
     if extra:
         raise KeyError(f"leftover JAX subtrees {sorted(extra)}")
     return out
+
+
+def _nest(tree: Dict[str, Any], path: str, value: np.ndarray) -> None:
+    *mods, leaf = path.split(".")
+    for m in mods:
+        tree = tree.setdefault(m, {})
+    tree[leaf] = value
+
+
+def params_to_jax(params: Mapping[str, Mapping[str, torch.Tensor]]):
+    """Port ``{"G", "F1", "F2"}`` state dicts -> JAX-layout (params,
+    batch_stats) trees of numpy arrays, the inverse of ``params_from_jax``
+    (``num_batches_tracked``, which flax does not keep, is dropped)."""
+    out_p: Dict[str, Any] = {}
+    out_s: Dict[str, Any] = {}
+    for name, sd in params.items():
+        p, s = out_p.setdefault(name, {}), out_s.setdefault(name, {})
+        for key, t in sd.items():
+            mod, _, leaf = key.rpartition(".")
+            prefix = f"{mod}." if mod else ""
+            arr = t.detach().cpu().numpy()
+            if leaf == "weight" and arr.ndim == 4:
+                _nest(p, prefix + "kernel", np.ascontiguousarray(arr.transpose(2, 3, 1, 0)))
+            elif leaf == "weight" and arr.ndim == 1:
+                _nest(p, prefix + "scale", arr)
+            elif leaf == "bias":
+                _nest(p, prefix + "bias", arr)
+            elif leaf in ("running_mean", "running_var"):
+                _nest(s, prefix + leaf[len("running_"):], arr)
+            elif leaf != "num_batches_tracked":
+                raise KeyError(f"{name}: no JAX place for {key!r}")
+    return out_p, out_s
+
+
+@torch.no_grad()
+def opt_state_from_jax(optimizer: torch.optim.Optimizer,
+                       modules: Mapping[str, torch.nn.Module],
+                       trace: Mapping[str, Mapping]) -> None:
+    """Set each parameter's ``momentum_buffer`` in ``optimizer`` (an SGD
+    over the parameters of ``modules``) from the optax ``trace`` tree of
+    the same names, e.g. ``({"G": g}, {"G": trace_g})`` or
+    ``({"F1": f1, "F2": f2}, trace_f)``. Raises unless every parameter of
+    the modules gets a buffer."""
+    for name, module in modules.items():
+        bufs, _ = _param_tensors(trace[name])
+        named = dict(module.named_parameters())
+        if bufs.keys() != named.keys():
+            raise KeyError(f"{name}: trace keys {sorted(bufs.keys() ^ named.keys())} "
+                           "do not match the module's parameters")
+        for key, p in named.items():
+            optimizer.state[p]["momentum_buffer"] = torch.empty_like(p).copy_(bufs[key])

@@ -1,0 +1,68 @@
+"""Structured training logs and a throughput meter.
+
+The port of the JAX package's ``utils/logging.py``: a JSONL step log plus
+stdout lines, and a StepTimer whose rate leaves out the first (warm-up)
+steps. TensorBoard output is not ported.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Any, Dict, Optional
+
+
+def make_run_logger(train_cfg) -> "JsonlLogger":
+    """The run directory's log: ``<out_dir>/train_log.jsonl``."""
+    return JsonlLogger(path=os.path.join(train_cfg.out_dir, "train_log.jsonl"))
+
+
+class JsonlLogger:
+    """One JSON object per record, appended to ``path``, echoed to stdout."""
+
+    def __init__(self, path: Optional[str] = None, echo: bool = True):
+        self.path = path
+        self.echo = echo
+        self._f = None
+        if path:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            self._f = open(path, "a")
+
+    def log(self, record: Dict[str, Any]) -> None:
+        record = {k: (v.item() if hasattr(v, "item") else v) for k, v in record.items()}
+        if self._f:
+            self._f.write(json.dumps(record) + "\n")
+            self._f.flush()
+        if self.echo:
+            parts = [f"{k}={v:.5g}" if isinstance(v, float) else f"{k}={v}"
+                     for k, v in record.items()]
+            print("  ".join(parts), flush=True)
+
+    def close(self) -> None:
+        if self._f:
+            self._f.close()
+            self._f = None
+
+
+class StepTimer:
+    """Items per second over the steps after the first ``skip_first``."""
+
+    def __init__(self, skip_first: int = 1):
+        self.skip_first = skip_first
+        self.n_steps = 0
+        self.n_items = 0
+        self._t0 = None
+
+    def tick(self, items: int) -> None:
+        self.n_steps += 1
+        if self.n_steps == self.skip_first:
+            self._t0 = time.perf_counter()
+        elif self.n_steps > self.skip_first:
+            self.n_items += items
+
+    @property
+    def items_per_sec(self) -> float:
+        if self._t0 is None or self.n_items == 0:
+            return 0.0
+        return self.n_items / (time.perf_counter() - self._t0)

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``mcseg_tpu_torch``
-loads neither ``jax`` nor ``mcseg_tpu``, and its entry points refuse to
-run on a CUDA device that is not there (no silent CPU fallback).
+loads neither ``jax`` nor ``mcseg_tpu``, and its entry points (serving,
+evaluation, training) refuse to run on a CUDA device that is not there (no
+silent CPU fallback).
 
 Runs in a fresh interpreter, since this test process has JAX loaded."""
 
@@ -20,12 +21,14 @@ for m in mods:
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "mcseg_tpu"))
 assert not leaked, leaked
-assert len(mods) >= 15, mods
+assert len(mods) >= 25, mods
 
 from mcseg_tpu_torch.core.config import DataConfig, ExperimentConfig, ModelConfig
 from mcseg_tpu_torch.eval.serving import make_serve_fn
 from mcseg_tpu_torch.eval.tester import evaluate
 from mcseg_tpu_torch.models.factory import init_models
+from mcseg_tpu_torch.train.loops import train_adapt
+from mcseg_tpu_torch.train.state import create_train_state
 
 cfg = ExperimentConfig(model=ModelConfig(net="drn_d_14", input_ch=6, n_class=8),
                        data=DataConfig(tgt_dataset="synthetic_shifted",
@@ -34,7 +37,9 @@ params = init_models(cfg.model, torch.Generator().manual_seed(0))
 if not torch.cuda.is_available():
     for call in (lambda: make_serve_fn(cfg, params),
                  lambda: make_serve_fn(cfg, params, device="cuda"),
-                 lambda: evaluate(params, cfg, max_batches=1)):
+                 lambda: evaluate(params, cfg, max_batches=1),
+                 lambda: train_adapt(cfg),
+                 lambda: create_train_state(cfg.model, cfg.train)):
         try:
             call()
         except RuntimeError as e:
