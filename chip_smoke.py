@@ -9,8 +9,11 @@ PyTorch version on the card, drives the serving path at full width
 (DRN-D-38, RGB+HHA from raw depth, 40 classes, 640x480, batch 8, bf16,
 random weights from a seed) through ``make_serve_fn`` and ``evaluate``, then
 the MCD training path at the same width (``num_k`` 4, synthetic ->
-synthetic_shifted) through the training iteration and ``train_adapt``, and
-checks that each path launched the kernels. Every phase prints one JSON line
+synthetic_shifted) through the training iteration and ``train_adapt``, then
+the four reference commands (``cli.adapt_train``, ``adapt_test``,
+``source_train``, ``source_test``) through their ``main``, then one MCD
+configuration of every other trunk, fusion mode and channel stack the
+flags accept, and checks that each path launched the kernels. Every phase prints one JSON line
 and any failure raises (exit code != 0), a ptxas spill included. Kernel
 times are L2-cold, as the serving path finds its inputs: each timing
 rotates over input sets that together move 3x the 50 MB L2, and a reading
@@ -393,20 +396,23 @@ def phase_eval():
          note="random weights: the mIoU value is meaningless, the plumbing is checked")
 
 
-def _train_config(dtype, hw=None, batch=None, **train_kw):
+def _train_config(dtype, hw=None, batch=None, net="drn_d_38", input_ch=6,
+                  fusion="single", **train_kw):
     """BASELINE config 4's training iteration (``bench.py:151``) on the
     synthetic corpora: DRN-D-38, RGB+HHA, 40 classes, convt heads, SGD
-    (momentum 0.9, wd 2e-5) at lr 1e-3 with the poly schedule, num_k 4."""
+    (momentum 0.9, wd 2e-5) at lr 1e-3 with the poly schedule, num_k 4;
+    ``net``, ``input_ch`` and ``fusion`` pick another family."""
     from mcseg_tpu_torch.core.config import (
         DataConfig, ExperimentConfig, ModelConfig, TrainConfig)
 
     hw, batch = hw or (H, W), batch or B
     return ExperimentConfig(
-        model=ModelConfig(net="drn_d_38", input_ch=6, n_class=40, dtype=dtype,
-                          upsample="convt"),
+        model=ModelConfig(net=net, input_ch=input_ch, n_class=40, dtype=dtype,
+                          upsample="convt", fusion=fusion),
         data=DataConfig(src_dataset="synthetic", tgt_dataset="synthetic_shifted",
                         batch_size=batch, train_img_shape=(hw[1], hw[0]),
-                        test_img_shape=(hw[1], hw[0]), input_ch=6, hha_on_device=True),
+                        test_img_shape=(hw[1], hw[0]), input_ch=input_ch,
+                        hha_on_device=True),
         train=TrainConfig(lr=1e-3, num_k=4, max_steps=100_000, seed=0, **train_kw))
 
 
@@ -428,15 +434,16 @@ def _snapshot(state):
             for name, m in (("G", state.g), ("F1", state.f1), ("F2", state.f2))}
 
 
-def _small_iteration(dtype, device, params):
-    """One iteration at batch 2, 48x64 of full DRN-D-38 from ``params``:
-    (metrics, weights before, weights after), the weights on the CPU."""
+def _small_iteration(dtype, device, params, **family):
+    """One iteration at batch 2, 48x64 of the full-width trunk (DRN-D-38
+    unless ``family`` names another) from ``params``: (metrics, weights
+    before, weights after), the weights on the CPU."""
     import torch
 
     from mcseg_tpu_torch.train.loops import make_adapt_iteration
     from mcseg_tpu_torch.train.state import create_train_state
 
-    cfg = _train_config(dtype, hw=(48, 64), batch=2)
+    cfg = _train_config(dtype, hw=(48, 64), batch=2, **family)
     state = create_train_state(cfg.model, cfg.train, 0, device, params=params)
     before = _snapshot(state)
     src, tgt = _raw_pair(cfg, 2, device)
@@ -479,7 +486,7 @@ def _iteration_errors(got, ref):
     return err
 
 
-def _card_vs_cpu():
+def _card_vs_cpu(**family):
     """One float32 iteration (TF32 off) on the card and on the CPU from the
     same weights, batches and draws, each also held against a float64 CPU
     iteration: the card's error from float64 next to the CPU's own float32
@@ -489,10 +496,11 @@ def _card_vs_cpu():
 
     from mcseg_tpu_torch.models.factory import init_models
 
-    params = init_models(_train_config("float32").model, torch.Generator().manual_seed(0))
-    card32 = _small_iteration("float32", DEVICE, params)
-    cpu32 = _small_iteration("float32", "cpu", params)
-    cpu64 = _small_iteration("float64", "cpu", params)
+    params = init_models(_train_config("float32", **family).model,
+                         torch.Generator().manual_seed(0))
+    card32 = _small_iteration("float32", DEVICE, params, **family)
+    cpu32 = _small_iteration("float32", "cpu", params, **family)
+    cpu64 = _small_iteration("float64", "cpu", params, **family)
     report = {"card_fp32_vs_cpu_fp32": _iteration_errors(card32, cpu32),
               "card_fp32_vs_cpu_fp64": _iteration_errors(card32, cpu64),
               "cpu_fp32_vs_cpu_fp64": _iteration_errors(cpu32, cpu64),
@@ -693,6 +701,273 @@ def phase_train(smi_line):
     return launches
 
 
+def _cli_argv(out_dir):
+    """The reference command line of the ``cli`` phase at full width."""
+    return ["--net", "drn_d_38", "--input_ch", "6", "--train_img_shape", str(W), str(H),
+            "--batch_size", str(B), "--dtype", "bfloat16", "--max_samples", str(2 * B),
+            "--epochs", "1", "--log_every", "1", "--out_dir", out_dir]
+
+
+def _logged(out_dir, keys):
+    """The run's JSONL log records; raises unless every ``keys`` value of
+    every training record is finite."""
+    import math
+
+    with open(os.path.join(out_dir, "train_log.jsonl")) as f:
+        logged = [json.loads(ln) for ln in f]
+    bad = [r for r in logged if not all(math.isfinite(r[k]) for k in keys)]
+    if not logged or bad:
+        raise AssertionError(f"{out_dir}: non-finite or missing losses: {bad or logged}")
+    return logged
+
+
+def phase_cli(smi_line):
+    """The four reference commands in process through their ``main`` on the
+    card, at full width, each with the launch count reset just before it
+    and read just after; a ``--resume`` whose ``--upsample`` differs from
+    the checkpoint's must raise, and ``python -m ...adapt_test`` must exit
+    0 and print the IoU table."""
+    import tempfile
+
+    import numpy as np
+
+    from mcseg_tpu_torch.cli import adapt_test, adapt_train, source_test, source_train
+    from mcseg_tpu_torch.ops.normalize import fused_normalize_stack
+
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    report = {}
+
+    def run(name, fn, want_launches):
+        fused_normalize_stack.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        report[name] = {"seconds": time.perf_counter() - t0,
+                        "launches": fused_normalize_stack.launches}
+        if fused_normalize_stack.launches != want_launches:
+            raise AssertionError(f"{name}: normalize kernel launched "
+                                 f"{fused_normalize_stack.launches} times, not {want_launches}")
+        return out
+
+    eval_batches = 2  # the sidecar's max_samples (16) of val over batch 8
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build"), prefix="cli_") as tmp:
+        adapt_dir, src_dir = os.path.join(tmp, "adapt"), os.path.join(tmp, "source")
+        state = run("adapt_train", lambda: adapt_train.main(
+            ["synthetic", "synthetic_shifted", "--num_k", "4"] + _cli_argv(adapt_dir),
+            device=DEVICE), 4)
+        logged = _logged(adapt_dir, ("loss_source", "loss_b", "loss_dis"))
+        if state.step != 2 or len(logged) != 2:
+            raise AssertionError(f"adapt_train: {state.step} iterations, {len(logged)} logged")
+        miou = run("adapt_test", lambda: adapt_test.main(
+            [os.path.join(adapt_dir, "last")], device=DEVICE), eval_batches)
+        report["adapt_test"]["miou"] = miou
+        state = run("source_train", lambda: source_train.main(
+            ["synthetic"] + _cli_argv(src_dir), device=DEVICE), 2)
+        logged = _logged(src_dir, ("loss",))
+        if state.step != 2 or len(logged) != 2:
+            raise AssertionError(f"source_train: {state.step} steps, {len(logged)} logged")
+        miou_f1 = run("source_test", lambda: source_test.main(
+            [os.path.join(src_dir, "last")], device=DEVICE), eval_batches)
+        report["source_test"]["miou"] = miou_f1
+        if not (np.isfinite(miou) and np.isfinite(miou_f1)):
+            raise AssertionError(f"mIoU adapt {miou}, source {miou_f1}")
+        # a structural drift on resume is refused before any state is built
+        try:
+            run("resume_upsample_drift", lambda: adapt_train.main(
+                ["synthetic", "synthetic_shifted", "--upsample", "resize", "--resume",
+                 os.path.join(adapt_dir, "last")] + _cli_argv(os.path.join(tmp, "drift")),
+                device=DEVICE), 0)
+        except ValueError as e:
+            if "--upsample: checkpoint has 'convt', CLI has 'resize'" not in str(e):
+                raise
+            report["resume_upsample_drift"] = {"raised": str(e).splitlines()[1].strip()}
+        else:
+            raise AssertionError("--resume with another --upsample did not raise")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "mcseg_tpu_torch.cli.adapt_test",
+             os.path.join(adapt_dir, "last"), "--max_samples", str(B)],
+            cwd=HERE, capture_output=True, text=True, timeout=600)
+        report["python_m_adapt_test"] = {"seconds": time.perf_counter() - t0,
+                                         "returncode": proc.returncode,
+                                         "stdout_tail": proc.stdout[-300:]}
+        if proc.returncode != 0 or "per-class IoU" not in proc.stdout \
+                or "mIoU:" not in proc.stdout:
+            raise AssertionError(f"python -m adapt_test: rc {proc.returncode}\n"
+                                 f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    emit("cli", net="drn_d_38", input_ch=6, batch=B, hw=[H, W], dtype="bfloat16",
+         commands=report, card=smi_line,
+         note="in-process main(argv, device='cuda'); seconds include the host "
+              "decode of the synthetic corpora and the checkpoint writes")
+    return sum(r.get("launches", 0) for r in report.values())
+
+
+FAMILIES = (  # one MCD configuration per --net, --fusion or --input_ch the slice adds
+    {"net": "drn_d_54"}, {"net": "drn_d_105"}, {"net": "drn_c_26"}, {"net": "drn_c_42"},
+    {"net": "drn_d_38", "fusion": "late"}, {"net": "drn_d_38", "input_ch": 4},
+    {"net": "drn_d_38", "input_ch": 1},
+)
+FAMILIES_CARD_VS_CPU = ({"net": "drn_d_54"}, {"net": "drn_c_26"},
+                        {"net": "drn_d_38", "fusion": "late"})
+FAMILY_TIMED = 2  # iterations after one warm-up, which also counts the FLOPs
+
+
+def _family_run(family, smi_line):
+    import math
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from mcseg_tpu_torch.ops.normalize import fused_normalize_stack
+    from mcseg_tpu_torch.train.loops import make_adapt_iteration
+    from mcseg_tpu_torch.train.state import create_train_state
+
+    cfg = _train_config("bfloat16", **family)
+    state = create_train_state(cfg.model, cfg.train, 0, DEVICE)
+    src, tgt = _raw_pair(cfg, B, DEVICE)
+    iterate = make_adapt_iteration(cfg)
+    before = _snapshot(state)
+    with FlopCounterMode(display=False) as counter:
+        iterate(state, src, tgt)
+    iteration_tflop = counter.get_total_flops() / 1e12
+    # FlopCounterMode attributes backward ops to modules by hooks that
+    # interleave across two trunks, so a trunk's own count is read only
+    # where G is one DRN
+    counts = counter.get_flop_counts()
+    trunk_tflop = sum(counts["DRN"].values()) / 1e12 if "DRN" in counts else None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_normalize_stack.launches = 0  # count only the timed iterations
+    times, metrics = [], []
+    for i in range(FAMILY_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = iterate(state, src, tgt)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if fused_normalize_stack.launches != 2 * (i + 1):
+            raise AssertionError(f"{family} iteration {i}: normalize kernel launched "
+                                 f"{fused_normalize_stack.launches} times in total")
+    launches = fused_normalize_stack.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError(f"{family}: non-finite metrics {metrics}")
+    after = _snapshot(state)
+    unchanged = [f"{n}.{k}" for n in ("G", "F1", "F2") for k, v in before[n].items()
+                 if v.is_floating_point() and torch.equal(v, after[n][k])]
+    if unchanged:
+        raise AssertionError(f"{family}: not updated by training: {unchanged[:10]}")
+    ms = statistics.median(times)
+    n_params = sum(p.numel() for m in (state.g, state.f1, state.f2) for p in m.parameters())
+    del state, before, after
+    torch.cuda.empty_cache()
+    return {"family": {"net": cfg.model.net, "input_ch": cfg.model.input_ch,
+                       "fusion": cfg.model.fusion},
+            "params_m": n_params / 1e6, "launches": launches,
+            "launches_per_iteration": launches / FAMILY_TIMED,
+            "ms_per_iteration": ms, "ms_per_iteration_all": times,
+            "images_per_s": 2 * B / ms * 1e3, "peak_mem_gb": peak_gb,
+            "iteration_tflop": iteration_tflop,
+            "iteration_share_of_bf16_peak": iteration_tflop / ms * 1e3 / H100_BF16_FLOPS * 1e12,
+            "trunk_tflop_per_iteration": trunk_tflop, "metrics": metrics}
+
+
+def _family_step(dtype, device, params, inputs, cfg):
+    """One MCD step (A / B / C x num_k) of ``cfg``'s model from ``params``
+    on ``inputs`` (preprocessed xs, ys, xt on the CPU), on ``device`` in
+    ``dtype``: (metrics, weights before, weights after), the weights on the
+    CPU."""
+    import torch
+
+    from mcseg_tpu_torch.core.device import compute_dtype
+    from mcseg_tpu_torch.train.mcd import make_mcd_step
+    from mcseg_tpu_torch.train.state import create_train_state
+
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype=dtype))
+    dt = compute_dtype(dtype)
+    state = create_train_state(cfg.model, cfg.train, 0, device, params=params)
+    before = _snapshot(state)
+    xs, ys, xt = inputs
+    metrics = make_mcd_step(cfg.train, False, dt)(
+        state, xs.to(device, dt), ys.to(device), xt.to(device, dt))
+
+    def cpu(snap):
+        return {n: {k: v.cpu().double() for k, v in sd.items() if v.is_floating_point()}
+                for n, sd in snap.items()}
+
+    return {k: float(v) for k, v in metrics.items()}, cpu(before), cpu(_snapshot(state))
+
+
+def _family_card_vs_cpu(family):
+    """One MCD step at batch 2, 48x64 on the card and on the CPU from the
+    same weights and the same preprocessed inputs (made once on the CPU),
+    in float64, held to CARD_VS_CPU_BOUNDS, and in float32, reported
+    beside the CPU's own float32 error from float64 and beside a float64
+    CPU step whose inputs are perturbed by 1e-7 relative noise. The step
+    is too ill-conditioned at this shape to take the preprocess of each
+    device or float32 rounding: on the CPU, in float64, that perturbation
+    moves drn_d_54's update by ~6% (4e-2 bound), and its float32 update
+    differs from float64 by as much; the card's kernel and HHA differ from
+    the CPU's by more than 1e-7. Float64 on the same inputs shows that the
+    card computes the same step; float32 shows how far rounding goes."""
+    import torch
+
+    from mcseg_tpu_torch.models.factory import init_models
+    from mcseg_tpu_torch.ops.preprocess import (
+        draw_augment, make_train_preprocess, pre_crop_canvas)
+    from mcseg_tpu_torch.train.loops import augment_generator
+
+    cfg = _train_config("float32", hw=(48, 64), batch=2, **family)
+    params = init_models(cfg.model, torch.Generator().manual_seed(0))
+    pp = make_train_preprocess(cfg.data, torch.float32)
+    pre, target = pre_crop_canvas(cfg.data)
+    gen = augment_generator(cfg.train.seed, 0)
+    src, tgt = _raw_pair(cfg, 2, "cpu")
+    xs, ys = pp(src, *draw_augment(gen, 2, pre, target, cfg.data))
+    xt, _ = pp({k: v for k, v in tgt.items() if k != "label"},
+               *draw_augment(gen, 2, pre, target, cfg.data))
+    inputs = (xs.permute(0, 3, 1, 2), ys, xt.permute(0, 3, 1, 2))
+    card64 = _family_step("float64", DEVICE, params, inputs, cfg)
+    cpu64 = _family_step("float64", "cpu", params, inputs, cfg)
+    card32 = _family_step("float32", DEVICE, params, inputs, cfg)
+    cpu32 = _family_step("float32", "cpu", params, inputs, cfg)
+    noise = torch.Generator().manual_seed(1)
+    perturbed = tuple(x * (1 + 1e-7 * torch.randn(x.shape, generator=noise, dtype=x.dtype))
+                      if x.is_floating_point() else x for x in inputs)
+    cpu64_perturbed = _family_step("float64", "cpu", params, perturbed, cfg)
+    report = {"family": family,
+              "card_fp64_vs_cpu_fp64": _iteration_errors(card64, cpu64),
+              "cpu_fp64_input_noise_1e-7_vs_cpu_fp64": _iteration_errors(cpu64_perturbed, cpu64),
+              "card_fp32_vs_cpu_fp32": _iteration_errors(card32, cpu32),
+              "card_fp32_vs_cpu_fp64": _iteration_errors(card32, cpu64),
+              "cpu_fp32_vs_cpu_fp64": _iteration_errors(cpu32, cpu64)}
+    failures = [f"{family}: {k} {report['card_fp64_vs_cpu_fp64'][k]:.3g} > {b}"
+                for k, b in CARD_VS_CPU_BOUNDS.items()
+                if not report["card_fp64_vs_cpu_fp64"][k] <= b]
+    return report, failures
+
+
+def phase_families(smi_line):
+    """One MCD configuration of each family the CLI flags reach beyond the
+    main one, at full width (640x480, batch 8, bf16, num_k 4): 2 launches
+    per iteration, finite losses, every tensor moved; and a card-vs-CPU
+    iteration at 48x64 for three of them (``_family_card_vs_cpu``)."""
+    runs = [_family_run(f, smi_line) for f in FAMILIES]
+    checks, failures = [], []
+    for family in FAMILIES_CARD_VS_CPU:
+        report, fails = _family_card_vs_cpu(family)
+        checks.append(report)
+        failures += fails
+    emit("families", batch=B, hw=[H, W], dtype="bfloat16", num_k=4, upsample="convt",
+         warmup=1, iterations=FAMILY_TIMED, runs=runs, card_vs_cpu=checks,
+         bounds=CARD_VS_CPU_BOUNDS, card=smi_line,
+         note="raw batches staged on the card; images counted as source plus "
+              "target (2 x batch) per iteration; random weights")
+    if failures:
+        raise AssertionError(f"card vs CPU float64 iteration: {failures}")
+    return sum(r["launches"] for r in runs)
+
+
 def main():
     try:
         import torch
@@ -714,6 +989,8 @@ def main():
         raise AssertionError("the serving path never launched fused_normalize_stack")
     phase_eval()
     train_launches = phase_train(smi_line)
+    cli_launches = phase_cli(smi_line)
+    family_launches = phase_families(smi_line)
     print(json.dumps({"kernels": [{
         "name": "fused_normalize_stack", "route": "cuda", "source": KERNEL_SRC,
         "replaces": KERNEL_REPLACES, "launches": launches,
@@ -721,7 +998,8 @@ def main():
         "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"], "library_ms": None,
         "share_of_bound": main_case["share_of_bound"],
-        "train_launches": train_launches, "train_case_ms": train_case["kernel_ms"],
+        "train_launches": train_launches, "cli_launches": cli_launches,
+        "family_launches": family_launches, "train_case_ms": train_case["kernel_ms"],
         "train_case_share_of_bound": train_case["share_of_bound"]}]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,9 @@
 """Evaluation: the shared inference core, the eval step and ``evaluate``.
 
 Per batch, all on the device: eval preprocess (with the normalize kernel)
--> G -> one PixelClassifier whose parameters are the average of F1 and F2
--> bilinear resize of the logits to the label resolution -> argmax ->
-confusion-matrix accumulation. Only the final [n, n] matrix reaches the
+-> G -> one head, F1 alone or a head whose parameters are the average of
+F1 and F2 -> bilinear resize of the logits to the label resolution ->
+argmax -> confusion-matrix accumulation. Only the final [n, n] matrix reaches the
 host. The tester and the serving path (eval/serving.py) both wrap
 ``make_infer_fn``, so inference cannot drift between them.
 """
@@ -33,8 +33,12 @@ def _averaged_head_params(params1: Dict[str, torch.Tensor],
     Every op of a PixelClassifier (1x1 conv, bias, fixed bilinear upsample)
     is linear, so averaging the logits equals one application with averaged
     weight and bias: half the score convs and full-resolution upsamples.
-    The average is taken in float32 parameter space (before any bf16
-    compute cast), in float64 under a float64 oracle."""
+    A late-fusion head is the sum of two PixelClassifiers, linear in its
+    parameters too, so the same average holds it; the JAX tester scores
+    late fusion in the two-apply form, the same function
+    (``tests/test_torch_fusion.py`` holds the two in float64). The average
+    is taken in float32 parameter space (before any bf16 compute cast), in
+    float64 under a float64 oracle."""
     if params1.keys() != params2.keys():
         raise ValueError("F1 and F2 differ in structure; cannot average them")
     dt = torch.promote_types(torch.float32, dtype)
@@ -47,21 +51,25 @@ def batch_to_device(raw_batch, device: torch.device) -> Dict[str, torch.Tensor]:
 
 
 def make_infer_fn(cfg: ExperimentConfig, params: Params, device="cuda",
-                  out_shape: Optional[Tuple[int, int]] = None):
+                  out_shape: Optional[Tuple[int, int]] = None,
+                  average_classifiers: bool = True):
     """``infer(raw_batch) -> (logits [B,H,W,n_class], label, feat)``.
 
     Loads ``params`` onto ``device`` (float32 parameters and BN statistics;
     bf16 activations through autocast when ``cfg.model.dtype`` is
-    bfloat16). Logits are at least float32, resized to ``out_shape``
-    ((H, W); default: the batch's label resolution). Labels are remapped,
-    int32, or None when the batch has none."""
+    bfloat16). The head is F1 and F2 averaged, or F1 alone when
+    ``average_classifiers`` is False (source-only scoring). Logits are at
+    least float32, resized to ``out_shape`` ((H, W); default: the batch's
+    label resolution). Labels are remapped, int32, or None when the batch
+    has none."""
     dev = resolve_device(device)
     dtype = compute_dtype(cfg.model.dtype)
     param_dtype = torch.float64 if dtype == torch.float64 else torch.float32
     g, f1, _ = get_models(cfg.model)
     g.load_state_dict(params["G"])
     f1.to(param_dtype)
-    f1.load_state_dict(_averaged_head_params(params["F1"], params["F2"], dtype))
+    f1.load_state_dict(_averaged_head_params(params["F1"], params["F2"], dtype)
+                       if average_classifiers else params["F1"])
     g, head = (m.to(dev, param_dtype).to(memory_format=torch.channels_last).eval()
                for m in (g, f1))
     img_dtype = torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
@@ -85,10 +93,11 @@ def make_infer_fn(cfg: ExperimentConfig, params: Params, device="cuda",
     return infer
 
 
-def make_eval_step(cfg: ExperimentConfig, params: Params, device="cuda"):
+def make_eval_step(cfg: ExperimentConfig, params: Params, device="cuda",
+                   average_classifiers: bool = True):
     """``step(raw_batch) -> (hist [n, n] int64, pred [B,H,W] int32)``, both
     on the device."""
-    infer = make_infer_fn(cfg, params, device)
+    infer = make_infer_fn(cfg, params, device, average_classifiers=average_classifiers)
     n_class = cfg.model.n_class
 
     def step(raw_batch):
@@ -116,13 +125,15 @@ def padded_batches(dataset, bs: int) -> Iterator[Tuple[Dict[str, np.ndarray], in
 
 def evaluate(params: Params, cfg: ExperimentConfig, dataset=None,
              max_batches: Optional[int] = None, print_table: bool = True,
-             device="cuda"):
+             device="cuda", average_classifiers: bool = True):
     """Score ``params`` on ``dataset`` (default: the config's target corpus,
-    val split). Returns (miou, hist int64 [n, n] numpy, table string)."""
+    val split) with F1 and F2 averaged, or F1 alone when
+    ``average_classifiers`` is False. Returns (miou, hist int64 [n, n]
+    numpy, table string)."""
     dev = resolve_device(device)
     dataset = dataset or get_dataset(cfg.data.tgt_dataset, cfg.data, "val")
     _, _, names, _ = get_label_spec(cfg.data.tgt_dataset)
-    step = make_eval_step(cfg, params, dev)
+    step = make_eval_step(cfg, params, dev, average_classifiers)
     n_class = cfg.model.n_class
     bs = min(cfg.data.batch_size, len(dataset))
     total = torch.zeros((n_class, n_class), dtype=torch.int64, device=dev)

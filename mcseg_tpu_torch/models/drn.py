@@ -1,20 +1,27 @@
-"""Dilated Residual Networks (arch D, BasicBlock) — the trunk G.
+"""Dilated Residual Networks, arch C and D — the trunk G.
 
 The port of the JAX package's ``models/drn.py`` (Yu, Koltun, Funkhouser,
 CVPR 2017), output stride 8:
 
-  * level 0: 7x7 stem; levels 1-2: plain conv stages (stride 1, then 2);
-  * levels 3-4: residual BasicBlocks with stride 2;
+  * level 0: 7x7 stem;
+  * levels 1-2: plain conv stages (arch D) or residual stages (arch C),
+    stride 1, then 2;
+  * levels 3-4: residual blocks with stride 2;
   * levels 5-6: dilation 2 / 4 instead of stride;
-  * levels 7-8: degridding conv stages with dilation 2, then 1.
+  * levels 7-8: degridding with dilation 2, then 1, without residuals
+    (plain conv stages in arch D, residual-free BasicBlocks in arch C).
+
+Blocks are BasicBlocks (two 3x3 convs) or Bottlenecks (1x1, 3x3, 1x1 to 4x
+the width). Variants: drn_d_22/38 and drn_c_26/42 (BasicBlock), drn_d_54/105
+(Bottleneck), and drn_d_14, a small test trunk.
 
 Submodules are named after the flax parameter tree (``conv0``, ``bn0``,
 ``layer1``..``layer8``, ``block{i}``, ``conv{i}``/``bn{i}``,
-``conv1/bn1/conv2/bn2/proj_conv/proj_bn``), so JAX weights map by name
-(``utils/jax_weights.py``). Padding is symmetric ``dilation * (k // 2)``,
-BatchNorm eps 1e-5 and momentum 0.1 (torch terms), its running variance
-advanced as flax advances it (``BatchNorm2d``). NCHW in and out.
-Arch C, Bottleneck trunks and drn_d_54/105 come in a later slice.
+``conv1/bn1/conv2/bn2[/conv3/bn3]/proj_conv/proj_bn``), so JAX weights map
+by name (``utils/jax_weights.py``). Padding is symmetric
+``dilation * (k // 2)``, BatchNorm eps 1e-5 and momentum 0.1 (torch terms),
+its running variance advanced as flax advances it (``BatchNorm2d``). NCHW
+in and out.
 """
 
 from __future__ import annotations
@@ -82,16 +89,20 @@ class ConvStage(nn.Module):
 
 
 class BasicBlock(nn.Module):
-    """Two 3x3 convs (dilation each its own) + identity or 1x1 projection."""
+    """Two 3x3 convs (dilation each its own) + identity or 1x1 projection;
+    ``residual=False`` drops the skip (arch C levels 7-8)."""
+
+    expansion = 1
 
     def __init__(self, cin: int, features: int, stride: int = 1,
-                 dilation: Tuple[int, int] = (1, 1)):
+                 dilation: Tuple[int, int] = (1, 1), residual: bool = True):
         super().__init__()
         self.conv1 = _conv(cin, features, 3, stride, dilation[0])
         self.bn1 = _bn(features)
         self.conv2 = _conv(features, features, 3, 1, dilation[1])
         self.bn2 = _bn(features)
-        self.needs_proj = stride != 1 or cin != features
+        self.residual = residual
+        self.needs_proj = residual and (stride != 1 or cin != features)
         if self.needs_proj:
             self.proj_conv = _conv(cin, features, 1, stride)
             self.proj_bn = _bn(features)
@@ -99,27 +110,62 @@ class BasicBlock(nn.Module):
     def forward(self, x):
         y = torch.relu(self.bn1(self.conv1(x)))
         y = self.bn2(self.conv2(y))
-        y = y + (self.proj_bn(self.proj_conv(x)) if self.needs_proj else x)
+        if self.residual:
+            y = y + (self.proj_bn(self.proj_conv(x)) if self.needs_proj else x)
+        return torch.relu(y)
+
+
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3 -> 1x1 to ``features * 4``, + identity or projection. The
+    stride and ``dilation[1]`` sit on the 3x3 ``conv2``; ``dilation[0]`` is
+    unused, as in the JAX block."""
+
+    expansion = 4
+
+    def __init__(self, cin: int, features: int, stride: int = 1,
+                 dilation: Tuple[int, int] = (1, 1), residual: bool = True):
+        super().__init__()
+        out = features * self.expansion
+        self.conv1 = _conv(cin, features, 1)
+        self.bn1 = _bn(features)
+        self.conv2 = _conv(features, features, 3, stride, dilation[1])
+        self.bn2 = _bn(features)
+        self.conv3 = _conv(features, out, 1)
+        self.bn3 = _bn(out)
+        self.residual = residual
+        self.needs_proj = residual and (stride != 1 or cin != out)
+        if self.needs_proj:
+            self.proj_conv = _conv(cin, out, 1, stride)
+            self.proj_bn = _bn(out)
+
+    def forward(self, x):
+        y = torch.relu(self.bn1(self.conv1(x)))
+        y = torch.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        if self.residual:
+            y = y + (self.proj_bn(self.proj_conv(x)) if self.needs_proj else x)
         return torch.relu(y)
 
 
 class ResStage(nn.Module):
-    """A level of BasicBlocks. Entering a dilation regime with
+    """A level of ``block``s. Entering a dilation regime with
     ``new_level=True`` ramps the first conv to half the dilation; levels
-    5-6 use ``new_level=False`` (full dilation from the first block)."""
+    5-8 use ``new_level=False`` (full dilation from the first block)."""
 
-    def __init__(self, cin: int, features: int, n_blocks: int, stride: int = 1,
-                 dilation: int = 1, new_level: bool = True):
+    def __init__(self, block, cin: int, features: int, n_blocks: int,
+                 stride: int = 1, dilation: int = 1, new_level: bool = True,
+                 residual: bool = True):
         super().__init__()
         self.n_blocks = n_blocks
+        self.out_ch = features * block.expansion
         if dilation == 1:
             first_dil = (1, 1)
         else:
             first_dil = (dilation // 2 if new_level else dilation, dilation)
-        self.block0 = BasicBlock(cin, features, stride, first_dil)
+        self.block0 = block(cin, features, stride, first_dil, residual)
         for i in range(1, n_blocks):
-            self.add_module(f"block{i}", BasicBlock(
-                features, features, 1, (dilation, dilation)))
+            self.add_module(f"block{i}", block(
+                self.out_ch, features, 1, (dilation, dilation), residual))
 
     def forward(self, x):
         for i in range(self.n_blocks):
@@ -128,22 +174,37 @@ class ResStage(nn.Module):
 
 
 class DRN(nn.Module):
-    """Arch-D DRN trunk: [B, input_ch, H, W] -> [B, 512, H/8, W/8]."""
+    """DRN trunk: [B, input_ch, H, W] -> [B, 512, H/8, W/8]."""
 
-    def __init__(self, layers: Sequence[int], input_ch: int = 3):
+    def __init__(self, arch: str, block, layers: Sequence[int], input_ch: int = 3):
         super().__init__()
         ch, L = CHANNELS, layers
         self.out_dim = ch[-1]
         self.conv0 = _conv(input_ch, ch[0], 7)
         self.bn0 = _bn(ch[0])
-        self.layer1 = ConvStage(ch[0], ch[0], L[0], stride=1)
-        self.layer2 = ConvStage(ch[0], ch[1], L[1], stride=2)
-        self.layer3 = ResStage(ch[1], ch[2], L[2], stride=2)
-        self.layer4 = ResStage(ch[2], ch[3], L[3], stride=2)
-        self.layer5 = ResStage(ch[3], ch[4], L[4], dilation=2, new_level=False)
-        self.layer6 = ResStage(ch[4], ch[5], L[5], dilation=4, new_level=False)
-        self.layer7 = ConvStage(ch[5], ch[6], L[6], dilation=2)
-        self.layer8 = ConvStage(ch[6], ch[7], L[7], dilation=1)
+        if arch == "C":
+            self.layer1 = ResStage(block, ch[0], ch[0], L[0], stride=1)
+            self.layer2 = ResStage(block, self.layer1.out_ch, ch[1], L[1], stride=2)
+            c = self.layer2.out_ch
+        else:
+            self.layer1 = ConvStage(ch[0], ch[0], L[0], stride=1)
+            self.layer2 = ConvStage(ch[0], ch[1], L[1], stride=2)
+            c = ch[1]
+        self.layer3 = ResStage(block, c, ch[2], L[2], stride=2)
+        self.layer4 = ResStage(block, self.layer3.out_ch, ch[3], L[3], stride=2)
+        self.layer5 = ResStage(block, self.layer4.out_ch, ch[4], L[4], dilation=2,
+                               new_level=False)
+        self.layer6 = ResStage(block, self.layer5.out_ch, ch[5], L[5], dilation=4,
+                               new_level=False)
+        c = self.layer6.out_ch
+        if arch == "C":
+            self.layer7 = ResStage(BasicBlock, c, ch[6], L[6], dilation=2,
+                                   new_level=False, residual=False)
+            self.layer8 = ResStage(BasicBlock, ch[6], ch[7], L[7], dilation=1,
+                                   new_level=False, residual=False)
+        else:
+            self.layer7 = ConvStage(c, ch[6], L[6], dilation=2)
+            self.layer8 = ConvStage(ch[6], ch[7], L[7], dilation=1)
 
     def forward(self, x):
         x = torch.relu(self.bn0(self.conv0(x)))
@@ -155,9 +216,13 @@ class DRN(nn.Module):
 _DRN_ZOO = {
     # drn_d_14 is not a published variant: one block per residual level,
     # the same stage structure at about half the graph — for cheap tests.
-    "drn_d_14": (1, 1, 1, 1, 1, 1, 1, 1),
-    "drn_d_22": (1, 1, 2, 2, 2, 2, 1, 1),
-    "drn_d_38": (1, 1, 3, 4, 6, 3, 1, 1),
+    "drn_d_14": ("D", BasicBlock, (1, 1, 1, 1, 1, 1, 1, 1)),
+    "drn_d_22": ("D", BasicBlock, (1, 1, 2, 2, 2, 2, 1, 1)),
+    "drn_d_38": ("D", BasicBlock, (1, 1, 3, 4, 6, 3, 1, 1)),
+    "drn_d_54": ("D", Bottleneck, (1, 1, 3, 4, 6, 3, 1, 1)),
+    "drn_d_105": ("D", Bottleneck, (1, 1, 3, 4, 23, 3, 1, 1)),
+    "drn_c_26": ("C", BasicBlock, (1, 1, 2, 2, 2, 2, 1, 1)),
+    "drn_c_42": ("C", BasicBlock, (1, 1, 3, 4, 6, 3, 1, 1)),
 }
 
 
@@ -168,4 +233,5 @@ def drn_variants() -> Tuple[str, ...]:
 def build_drn(net: str, input_ch: int = 3) -> DRN:
     if net not in _DRN_ZOO:
         raise ValueError(f"unknown DRN variant {net!r}; options: {sorted(_DRN_ZOO)}")
-    return DRN(_DRN_ZOO[net], input_ch=input_ch)
+    arch, block, layers = _DRN_ZOO[net]
+    return DRN(arch, block, layers, input_ch=input_ch)

@@ -16,21 +16,31 @@ from torch import nn
 
 from mcseg_tpu_torch.core.config import ModelConfig
 from mcseg_tpu_torch.models.drn import build_drn, drn_variants
+from mcseg_tpu_torch.models.fusion import LateFusionClassifier, LateFusionGenerator
 from mcseg_tpu_torch.models.heads import PixelClassifier
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
 
 def get_models(cfg: ModelConfig) -> Tuple[nn.Module, nn.Module, nn.Module]:
-    """Build (G, F1, F2) modules for a ModelConfig (early-fusion DRN)."""
-    if cfg.fusion == "late":
-        raise ValueError("late fusion is not ported yet")
+    """Build (G, F1, F2) modules for a ModelConfig: one DRN trunk (single
+    modality or early fusion) or two (late fusion)."""
+    if cfg.fusion == "late" and cfg.input_ch != 6:
+        # the generator splits channels [0:3] rgb / [3:6] hha; any other
+        # input_ch would drop or misroute planes
+        raise ValueError(
+            f"--fusion late requires --input_ch 6 (rgb+hha), got "
+            f"input_ch={cfg.input_ch}; use early fusion (single trunk) "
+            "for other channel stacks")
     if cfg.net not in drn_variants():
-        raise ValueError(f"--net {cfg.net!r} is not ported yet; options: "
-                         f"{sorted(drn_variants())}")
-    g = build_drn(cfg.net, input_ch=cfg.input_ch)
-    f1 = PixelClassifier(g.out_dim, cfg.n_class, upsample=cfg.upsample)
-    f2 = PixelClassifier(g.out_dim, cfg.n_class, upsample=cfg.upsample)
+        raise ValueError(f"--net {cfg.net!r} is not ported yet (fcn8s_vgg16 and "
+                         f"psp are not); options: {sorted(drn_variants())}")
+    if cfg.fusion == "late":
+        g, head = LateFusionGenerator(cfg.net), LateFusionClassifier
+    else:
+        g, head = build_drn(cfg.net, input_ch=cfg.input_ch), PixelClassifier
+    f1 = head(g.out_dim, cfg.n_class, upsample=cfg.upsample)
+    f2 = head(g.out_dim, cfg.n_class, upsample=cfg.upsample)
     return g, f1, f2
 
 
@@ -46,12 +56,15 @@ def _init_trunk(g: nn.Module, gen: torch.Generator) -> None:
 
 
 @torch.no_grad()
-def _init_head(f: PixelClassifier, gen: torch.Generator) -> None:
-    # LeCun-normal (truncated at 2 sigma, variance-corrected), zero bias
-    w = f.score.weight
-    std = math.sqrt(1.0 / w.shape[1]) / 0.87962566103423978
-    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
-    f.score.bias.zero_()
+def _init_head(f: nn.Module, gen: torch.Generator) -> None:
+    # LeCun-normal (truncated at 2 sigma, variance-corrected), zero bias,
+    # for each score conv (two under late fusion)
+    for m in f.modules():
+        if isinstance(m, PixelClassifier):
+            w = m.score.weight
+            std = math.sqrt(1.0 / w.shape[1]) / 0.87962566103423978
+            nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
+            m.score.bias.zero_()
 
 
 def init_models(cfg: ModelConfig, gen: torch.Generator) -> Params:

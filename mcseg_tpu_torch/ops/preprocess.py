@@ -3,9 +3,10 @@
 The port of the JAX package's ``ops/preprocess.py``. Eval:
 
   raw uint8 RGB [B,h,w,3] (+ float metres | uint16 mm depth [B,h,w], or a
-  precomputed uint8 HHA plane)
+  precomputed uint8 HHA plane, an 'ir' or a 'boundary' plane)
       -> label remap (one gather through the corpus table)
-      -> depth -> HHA (ops.hha) when input_ch 6 needs it
+      -> the extra planes: depth -> HHA (ops.hha) for input_ch 6, one
+         depth-like plane for 1 and 4 (``_extra_channels``)
       -> bilinear resize to test_img_shape, skipped when the decode size
          already equals it (exact: the resize is then the identity)
       -> fused normalize/stack (ops.normalize, the CUDA kernel on the card)
@@ -60,21 +61,42 @@ def resize_bilinear(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
 
 def _extra_channels(batch: Dict[str, torch.Tensor], input_ch: int,
                     hha_on_device: bool = False) -> Optional[torch.Tensor]:
-    """Non-RGB channels in [0, 1]: none for input_ch 3, HHA for 6.
+    """Non-RGB channels in [0, 1], [B,h,w,E]: none for input_ch 3, HHA for
+    6, one plane for 1 and 4.
 
     ``hha_on_device`` picks the HHA source when the batch carries both a
-    precomputed 'hha' plane and raw 'depth': True encodes from depth."""
+    precomputed 'hha' plane and raw 'depth': True encodes from depth. The
+    plane of 1 and 4 is, in this order of preference: depth over the
+    largest depth of the whole batch (taken on the raw planes, before any
+    resize or crop, at least 1 mm), the HHA disparity plane / 255, 'ir' /
+    255, or 'boundary' > 0."""
     if input_ch == 3:
         return None
-    if input_ch != 6:
-        raise ValueError(f"input_ch={input_ch}: the port's preprocess supports 3 and 6")
     has_hha = batch.get("hha") is not None
     has_depth = batch.get("depth") is not None
-    if has_hha and not (hha_on_device and has_depth):
-        return batch["hha"].to(torch.float32) / 255.0
-    if has_depth:
-        return depth_to_hha_batch(depth_to_meters(batch["depth"])) / 255.0
-    raise ValueError("input_ch=6 needs 'hha' or 'depth' in the batch")
+    if input_ch == 6:
+        if has_hha and not (hha_on_device and has_depth):
+            return batch["hha"].to(torch.float32) / 255.0
+        if has_depth:
+            return depth_to_hha_batch(depth_to_meters(batch["depth"])) / 255.0
+        raise ValueError("input_ch=6 needs 'hha' or 'depth' in the batch")
+    if input_ch in (1, 4):
+        if has_depth:
+            depth = depth_to_meters(batch["depth"])
+            return (depth / depth.max().clamp(min=1e-3))[..., None]
+        if has_hha:  # the disparity plane as a depth proxy
+            return batch["hha"][..., 0:1].to(torch.float32) / 255.0
+        if batch.get("ir") is not None:  # multispectral 4th channel
+            return batch["ir"].to(torch.float32)[..., None] / 255.0
+        if batch.get("boundary") is not None:  # edge map as the 4th channel
+            return (batch["boundary"] > 0).to(torch.float32)[..., None]
+        raise ValueError(f"input_ch={input_ch} needs 'depth', 'hha', 'ir' or "
+                         "'boundary' in the batch")
+    if input_ch == 7:
+        raise ValueError("input_ch=7 (rgb+hha+boundary) is not ported yet: it "
+                         "needs the 'boundary' planes of the on-disk readers "
+                         "(ROADMAP.md Queue 1 item 6)")
+    raise ValueError(f"unsupported input_ch {input_ch}")
 
 
 def make_eval_preprocess(cfg: DataConfig,

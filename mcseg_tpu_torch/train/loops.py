@@ -1,12 +1,15 @@
-"""The MCD adaptation training loop.
+"""The training loops: MCD adaptation and source-only.
 
-The port of the JAX package's ``train/loops.py`` ``train_adapt``: zipped
-(source, target) batches of raw planes go to the device, through the train
-preprocess (with the normalize kernel) and the MCD iteration. The crop and
-flip draws of iteration ``step`` come from a generator seeded by
-``(seed + 1, step)``, so a resumed run repeats an uninterrupted one.
-Around the iteration: the NaN guard at log points, a graceful stop on
-SIGTERM/SIGINT or after ``max_hours``, per-epoch checkpoints and resume.
+The port of the JAX package's ``train/loops.py`` ``train_adapt`` and
+``train_source``. Batches of raw planes (zipped source and target for
+adaptation) go to the device, through the train preprocess (with the
+normalize kernel) and the step. The crop and flip draws of iteration
+``step`` come from a generator seeded by ``(seed + 1, step)``, so a resumed
+run repeats an uninterrupted one. Both loops share one body
+(``_train_loop``): the NaN guard at log points, a graceful stop on
+SIGTERM/SIGINT or after ``max_hours``, per-epoch checkpoints pruned to
+``keep_checkpoints``, ``last`` at the end, and resume from an epoch
+boundary after a check that the checkpoint has the requested structure.
 """
 
 from __future__ import annotations
@@ -28,8 +31,10 @@ from mcseg_tpu_torch.eval.tester import batch_to_device
 from mcseg_tpu_torch.ops.preprocess import (
     draw_augment, make_train_preprocess, pre_crop_canvas)
 from mcseg_tpu_torch.train.mcd import make_mcd_step
+from mcseg_tpu_torch.train.source import make_source_step
 from mcseg_tpu_torch.train.state import MCDTrainState, create_train_state
-from mcseg_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from mcseg_tpu_torch.utils.checkpoint import (
+    load_checkpoint, load_config, prune_epoch_checkpoints, save_checkpoint)
 from mcseg_tpu_torch.utils.logging import JsonlLogger, StepTimer, make_run_logger
 
 
@@ -37,6 +42,19 @@ def augment_generator(seed: int, step: int) -> torch.Generator:
     """The CPU generator of iteration ``step``'s crop and flip draws."""
     mixed = np.random.SeedSequence([seed + 1, step]).generate_state(1, np.uint64)[0]
     return torch.Generator().manual_seed(int(mixed) & (2**63 - 1))
+
+
+def _as_input(dtype: torch.dtype) -> Callable:
+    def as_input(img):
+        # the NHWC-contiguous stack is NCHW in channels_last memory: no copy
+        x = img.permute(0, 3, 1, 2)
+        return x.to(torch.float64) if dtype == torch.float64 else x
+
+    return as_input
+
+
+def _img_dtype(dtype: torch.dtype) -> torch.dtype:
+    return torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
 
 
 def make_adapt_iteration(cfg: ExperimentConfig) -> Callable:
@@ -47,15 +65,10 @@ def make_adapt_iteration(cfg: ExperimentConfig) -> Callable:
     passed to the step, and also called with 'preprocess' after both
     preprocesses."""
     dtype = compute_dtype(cfg.model.dtype)
-    pp = make_train_preprocess(
-        cfg.data, torch.bfloat16 if dtype == torch.bfloat16 else torch.float32)
+    pp = make_train_preprocess(cfg.data, _img_dtype(dtype))
     step = make_mcd_step(cfg.train, cfg.model.uses_one_classifier, dtype)
     pre, target = pre_crop_canvas(cfg.data)
-
-    def as_input(img):
-        # the NHWC-contiguous stack is NCHW in channels_last memory: no copy
-        x = img.permute(0, 3, 1, 2)
-        return x.to(torch.float64) if dtype == torch.float64 else x
+    as_input = _as_input(dtype)
 
     def iterate(state: MCDTrainState, src, tgt, mark=None):
         gen = augment_generator(cfg.train.seed, state.step)
@@ -66,6 +79,24 @@ def make_adapt_iteration(cfg: ExperimentConfig) -> Callable:
         if mark:
             mark("preprocess")
         return step(state, as_input(xs), ys, as_input(xt), mark)
+
+    return iterate
+
+
+def make_source_iteration(cfg: ExperimentConfig) -> Callable:
+    """``iterate(state, src) -> metrics``: one source-only step on a batch
+    of raw planes already on the state's device — train preprocess (one
+    launch of the normalize kernel), then the source step."""
+    dtype = compute_dtype(cfg.model.dtype)
+    pp = make_train_preprocess(cfg.data, _img_dtype(dtype))
+    step = make_source_step(cfg.train, dtype)
+    pre, target = pre_crop_canvas(cfg.data)
+    as_input = _as_input(dtype)
+
+    def iterate(state: MCDTrainState, src):
+        gen = augment_generator(cfg.train.seed, state.step)
+        x, y = pp(src, *draw_augment(gen, src["image"].shape[0], pre, target, cfg.data))
+        return step(state, as_input(x), y)
 
     return iterate
 
@@ -116,45 +147,69 @@ class GracefulStop:
             signal.signal(sig, h)
 
 
-def train_adapt(cfg: ExperimentConfig, logger: Optional[JsonlLogger] = None,
-                max_iterations: Optional[int] = None,
-                on_epoch_end: Optional[Callable] = None,
-                device="cuda") -> MCDTrainState:
-    """MCD adaptation training on ``device``: ``cfg.train.epochs`` epochs
-    (or ``max_iterations``) over the zipped source and target corpora,
-    from ``cfg.train.resume`` when set. Writes ``ep<N>`` checkpoints every
-    ``checkpoint_every_epochs`` and ``last`` at the end into
-    ``cfg.train.out_dir``; returns the final state."""
-    dev = resolve_device(device)
+# Checkpoint fields that determine the model and optimizer structure:
+# resuming with another value would restore the weights into another
+# architecture, so the loops compare them before any state is built.
+_RESUME_STRUCTURAL_FIELDS = (
+    ("model", "net"), ("model", "input_ch"), ("model", "n_class"),
+    ("model", "method"), ("model", "fusion"), ("model", "upsample"),
+    ("train", "opt"),
+)
+
+
+def _check_resume_config(cli_cfg: ExperimentConfig, ckpt_cfg: ExperimentConfig,
+                         resume_path: str) -> None:
+    drift = []
+    for section, name in _RESUME_STRUCTURAL_FIELDS:
+        cli_v = getattr(getattr(cli_cfg, section), name)
+        ckpt_v = getattr(getattr(ckpt_cfg, section), name)
+        if cli_v != ckpt_v:
+            drift.append(f"--{name}: checkpoint has {ckpt_v!r}, CLI has {cli_v!r}")
+    if drift:
+        raise ValueError(
+            f"--resume {resume_path!r} config mismatch — the checkpointed model "
+            "cannot be restored into the requested architecture:\n  "
+            + "\n  ".join(drift)
+            + "\nDrop the conflicting flag(s) or resume a matching checkpoint."
+        )
+
+
+def _init_or_resume(cfg: ExperimentConfig, dev: torch.device) -> MCDTrainState:
+    if cfg.train.resume:
+        _check_resume_config(cfg, load_config(cfg.train.resume), cfg.train.resume)
+        state, _ = load_checkpoint(cfg.train.resume, dev, config=cfg)
+        return state
+    return create_train_state(cfg.model, cfg.train, cfg.train.seed, dev)
+
+
+def _train_loop(cfg: ExperimentConfig, dataset, iterate: Callable,
+                logger: Optional[JsonlLogger], max_iterations: Optional[int],
+                on_epoch_end: Optional[Callable], dev: torch.device) -> MCDTrainState:
+    """The loop both trainers share: ``iterate(state, *raw_batches)`` on
+    each item of the seeded batch stream of ``dataset`` (a pair of batches
+    for a ZipDataset), moved to ``dev`` first."""
+    state = _init_or_resume(cfg, dev)
     out_dir = cfg.train.out_dir
     os.makedirs(out_dir, exist_ok=True)
     own_logger = logger is None
     logger = logger or make_run_logger(cfg.train)
-
-    zipped = ZipDataset(get_dataset(cfg.data.src_dataset, cfg.data, cfg.data.split),
-                        get_dataset(cfg.data.tgt_dataset, cfg.data, cfg.data.split))
     bs = cfg.data.batch_size
-    if cfg.train.resume:
-        state, _ = load_checkpoint(cfg.train.resume, dev, config=cfg)
-    else:
-        state = create_train_state(cfg.model, cfg.train, cfg.train.seed, dev)
-    iterate = make_adapt_iteration(cfg)
     step0 = state.step
-    steps_per_epoch = max(len(zipped) // bs, 1)
+    steps_per_epoch = max(len(dataset) // bs, 1)
     # checkpoints fall on epoch boundaries; a mid-epoch step replays its
     # epoch from the start
     start_epoch = step0 // steps_per_epoch if cfg.train.resume else 0
-    stream = batch_iterator(zipped, bs, seed=cfg.train.seed, epochs=cfg.train.epochs,
+    stream = batch_iterator(dataset, bs, seed=cfg.train.seed, epochs=cfg.train.epochs,
                             start_epoch=start_epoch)
     timer = StepTimer()
     stop = GracefulStop().install(cfg.train.max_hours)
     try:
-        for i, (src_raw, tgt_raw) in enumerate(stream):
+        for i, item in enumerate(stream):
             if stop.stop or (i > 0 and stop.expired()) or (
                     max_iterations is not None and i >= max_iterations):
                 break
-            metrics = iterate(state, batch_to_device(src_raw, dev),
-                              batch_to_device(tgt_raw, dev))
+            raws = item if isinstance(item, tuple) else (item,)
+            metrics = iterate(state, *(batch_to_device(r, dev) for r in raws))
             timer.tick(bs)
             if i % cfg.train.log_every == 0:
                 check_finite(metrics, step0 + i)
@@ -165,6 +220,7 @@ def train_adapt(cfg: ExperimentConfig, logger: Optional[JsonlLogger] = None,
                 if (cfg.train.checkpoint_every_epochs > 0
                         and epoch % cfg.train.checkpoint_every_epochs == 0):
                     save_checkpoint(os.path.join(out_dir, f"ep{epoch}"), state, cfg)
+                    prune_epoch_checkpoints(out_dir, cfg.train.keep_checkpoints)
                 if on_epoch_end:
                     on_epoch_end(epoch, state)
     finally:
@@ -173,3 +229,31 @@ def train_adapt(cfg: ExperimentConfig, logger: Optional[JsonlLogger] = None,
             logger.close()
     save_checkpoint(os.path.join(out_dir, "last"), state, cfg)
     return state
+
+
+def train_adapt(cfg: ExperimentConfig, logger: Optional[JsonlLogger] = None,
+                max_iterations: Optional[int] = None,
+                on_epoch_end: Optional[Callable] = None,
+                device="cuda") -> MCDTrainState:
+    """MCD adaptation training on ``device``: ``cfg.train.epochs`` epochs
+    (or ``max_iterations``) over the zipped source and target corpora,
+    from ``cfg.train.resume`` when set. Writes ``ep<N>`` checkpoints every
+    ``checkpoint_every_epochs`` and ``last`` at the end into
+    ``cfg.train.out_dir``; returns the final state."""
+    dev = resolve_device(device)
+    zipped = ZipDataset(get_dataset(cfg.data.src_dataset, cfg.data, cfg.data.split),
+                        get_dataset(cfg.data.tgt_dataset, cfg.data, cfg.data.split))
+    return _train_loop(cfg, zipped, make_adapt_iteration(cfg), logger,
+                       max_iterations, on_epoch_end, dev)
+
+
+def train_source(cfg: ExperimentConfig, logger: Optional[JsonlLogger] = None,
+                 max_iterations: Optional[int] = None,
+                 on_epoch_end: Optional[Callable] = None,
+                 device="cuda") -> MCDTrainState:
+    """Supervised source-only training on ``device`` over the source
+    corpus; otherwise as ``train_adapt``."""
+    dev = resolve_device(device)
+    dataset = get_dataset(cfg.data.src_dataset, cfg.data, cfg.data.split)
+    return _train_loop(cfg, dataset, make_source_iteration(cfg), logger,
+                       max_iterations, on_epoch_end, dev)

@@ -8,15 +8,18 @@
 As in the JAX package (``utils/checkpoint.py``), the model is rebuilt from
 the config stored beside the weights, and both files are published
 atomically (a temporary file, then ``os.replace``), so a prefix always
-names a complete checkpoint. Conversion to and from the JAX msgpack
-payload comes in a later slice.
+names a complete checkpoint. ``prune_epoch_checkpoints`` keeps the newest
+``keep_checkpoints`` epoch checkpoints, as the JAX loops do. Conversion to
+and from the JAX msgpack payload comes in a later slice.
 """
 
 from __future__ import annotations
 
+import glob
 import json
 import os
-from typing import Optional, Tuple
+import re
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -50,6 +53,29 @@ def save_checkpoint(prefix: str, state: MCDTrainState, config: ExperimentConfig)
 
     _publish(prefix + ".config.json", write_config)
     return path
+
+
+def prune_epoch_checkpoints(out_dir: str, keep: int) -> List[str]:
+    """Delete all but the newest ``keep`` epoch checkpoints (``ep<N>.pt``
+    and their config sidecars) in ``out_dir``; ``last`` is never touched
+    and ``keep <= 0`` keeps everything. Returns the pruned prefixes."""
+    if keep <= 0:
+        return []
+    eps = []
+    for p in glob.glob(os.path.join(out_dir, "ep*.pt")):
+        m = re.fullmatch(r"ep(\d+)\.pt", os.path.basename(p))
+        if m:
+            eps.append((int(m.group(1)), p[: -len(".pt")]))
+    eps.sort()
+    pruned = []
+    for _, prefix in eps[:-keep]:
+        for suffix in (".pt", ".config.json"):
+            try:
+                os.remove(prefix + suffix)
+            except FileNotFoundError:
+                pass
+        pruned.append(prefix)
+    return pruned
 
 
 def load_config(prefix: str) -> ExperimentConfig:

@@ -50,3 +50,42 @@ def jax_params(model_cfg, img_hw=(48, 64), seed=0):
         score = params[head]["score"]
         score["bias"] = rng.normal(0.0, 0.1, score["bias"].shape).astype(np.float32)
     return params, stats
+
+
+def port_params_jax_layout(model_cfg, img_hw=(48, 64), seed=0):
+    """(params, batch_stats) in the JAX layout, as ``jax_params`` gives,
+    made from the port's seeded initializer instead of JAX's (whose
+    forward costs seconds of XLA compiles per trunk). The tree is held to
+    the JAX initializer's names and shapes by ``jax.eval_shape``, which
+    compiles nothing; BN statistics and head biases are randomized."""
+    import torch
+
+    from mcseg_tpu_torch.core.config import ModelConfig as PortModelConfig
+    from mcseg_tpu_torch.models.factory import init_models as port_init_models
+    from mcseg_tpu_torch.utils.jax_weights import params_to_jax
+
+    jcfg = dataclasses.replace(model_cfg, dtype="float32")
+    want = jax.eval_shape(lambda k: jax_init_models(jcfg, k, img_shape=img_hw),
+                          jax.random.key(seed))
+    port = port_init_models(PortModelConfig.from_dict(jcfg.to_dict()),
+                            torch.Generator().manual_seed(seed))
+    params, stats = params_to_jax(port)
+    for got, ref in ((params, want["params"]), (stats, want["batch_stats"])):
+        got_shapes = jax.tree.map(np.shape, got)
+        ref_shapes = jax.tree.map(lambda s: tuple(s.shape), ref)
+        assert got_shapes == ref_shapes, "port tree differs from the JAX initializer's"
+    rng = np.random.RandomState(seed)
+    _randomize_bn(params["G"], stats["G"], rng)
+    for head in ("F1", "F2"):
+        for path, bias in _score_biases(params[head]):
+            path["bias"] = rng.normal(0.0, 0.1, bias.shape).astype(np.float32)
+    return params, stats
+
+
+def _score_biases(tree):
+    """(dict holding a score conv's 'bias', the bias) for every head in the
+    F tree (one, or two under late fusion)."""
+    if "score" in tree:
+        return [(tree["score"], tree["score"]["bias"])]
+    return [pair for sub in tree.values() if isinstance(sub, dict)
+            for pair in _score_biases(sub)]

@@ -1,0 +1,197 @@
+"""The port's reference command lines (``mcseg_tpu_torch/cli``) against the
+JAX package's, and end to end on the CPU.
+
+Parsing: the same reference command line gives the same ExperimentConfig
+dict in both packages, the testing parser the same namespace, and a bad
+choice is refused by both. Flags that change what a run produces and that
+the port has not ported raise ``NotImplementedError``. ``--resume`` checks
+the checkpoint's structure first, with JAX's message.
+
+End to end: drn_d_14, 40 classes, float32, batch 2 of ``synthetic`` ->
+``synthetic_shifted`` decoded at 32x24, 2 samples per corpus (one
+iteration per epoch). ``main(argv, device="cpu")`` of each command; the
+run directory's files, ``--keep_checkpoints`` pruning, the epoch-eval
+hook, the tester's F1/F2 choice, and a resumed run landing bit-equal on an
+uninterrupted one.
+"""
+
+import dataclasses
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from mcseg_tpu.cli import argparse_compat as jax_cli
+from mcseg_tpu.core.config import ExperimentConfig as JaxExperimentConfig
+from mcseg_tpu.train.loops import _check_resume_config as jax_check_resume_config
+from mcseg_tpu_torch.cli import _epoch_eval, adapt_test, adapt_train, source_test, source_train
+from mcseg_tpu_torch.cli import argparse_compat as cli
+from mcseg_tpu_torch.core.config import ExperimentConfig
+from mcseg_tpu_torch.eval.tester import evaluate
+from mcseg_tpu_torch.train import loops
+from mcseg_tpu_torch.utils.checkpoint import load_params
+
+COMMAND_LINES = {
+    "adapt_suncg_nyu_rgbhha": (True, "suncg nyu --input_ch 6 --num_k 4"),
+    "adapt_gta5_city": (True, "gta5 city"),
+    "source_nyu_drn_c_42": (False, "nyu --net drn_c_42"),
+    "adapt_late_fusion": (True, "suncg nyu --fusion late --input_ch 6 --net drn_d_54 "
+                                "--d_loss symkl --opt adam --lr 2e-4"),
+    "source_rgbd_resize": (False, "nyu --input_ch 4 --upsample resize --train_img_shape 321 241 "
+                                  "--no_random_crop --keep_checkpoints 3 --max_hours 1.5"),
+    "adapt_s2d_on_inert_flags": (True, "synthetic synthetic_shifted --s2d on --num_workers 2 "
+                                       "--device_corpus off --decode_cache_gb 0 "
+                                       "--decode_disk_cache_gb 2 --sync_checkpoint "
+                                       "--uses_one_classifier --test_img_shape 64 48"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(COMMAND_LINES))
+def test_reference_command_line_gives_the_jax_config(name):
+    adapt, line = COMMAND_LINES[name]
+    argv = line.split()
+    ours = cli.get_da_mcd_training_parser() if adapt else cli.get_src_only_training_parser()
+    theirs = (jax_cli.get_da_mcd_training_parser() if adapt
+              else jax_cli.get_src_only_training_parser())
+    a, b = ours.parse_args(argv), theirs.parse_args(argv)
+    assert vars(a) == vars(b)
+    cfg = cli.args_to_config(a, adapt)
+    assert cfg.to_dict() == jax_cli.args_to_config(b, adapt).to_dict()
+    assert ExperimentConfig.from_dict(cfg.to_dict()) == cfg
+    cli.reject_unported(a)  # every flag of these lines is ported or inert
+
+
+def test_testing_parser_and_bad_choices_match_jax():
+    argv = "ckpt/last nyu --split val --batch_size 4 --test_img_shape 64 48 " \
+           "--f1_only --use_f2 --max_samples 3 --data_root /d".split()
+    assert vars(cli.get_testing_parser().parse_args(argv)) == \
+        vars(jax_cli.get_testing_parser().parse_args(argv))
+    assert cli.fix_img_shape_args((321, 241)) == jax_cli.fix_img_shape_args((321, 241))
+    for bad in ("nyu --input_ch 5", "nyu --fusion middle", "nyu --upsample nearest",
+                "nyu --dtype float16"):
+        for parser in (cli.get_src_only_training_parser(),
+                       jax_cli.get_src_only_training_parser()):
+            with pytest.raises(SystemExit):
+                parser.parse_args(bad.split())
+
+
+@pytest.mark.parametrize("main,argv", [
+    (adapt_train.main, "synthetic synthetic_shifted --tb_dir tb"),
+    (adapt_train.main, "synthetic synthetic_shifted --multihost"),
+    (source_train.main, "synthetic --coordinator localhost:1234"),
+    (source_train.main, "synthetic --num_processes 2"),
+    (adapt_train.main, "synthetic synthetic_shifted --process_id 0"),
+    (source_train.main, "synthetic --spatial_devices 2"),
+    (adapt_test.main, "ckpt --outdir preds"),
+    (adapt_test.main, "ckpt --submit_dir submit"),
+    (source_test.main, "ckpt --saves_prob"),
+    (source_test.main, "ckpt --all_devices"),
+], ids=lambda v: v.split()[-1] if isinstance(v, str) else None)
+def test_unported_output_flags_raise(main, argv, tmp_path):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item \d"):
+        main(argv.split() + ["--out_dir", str(tmp_path / "run")] if "train" in main.__module__
+             else argv.split(), device="cpu")
+    assert not os.path.exists(tmp_path / "run")  # refused before anything was written
+
+
+@pytest.mark.parametrize("section,name,value", [
+    ("model", "net", "drn_d_22"), ("model", "input_ch", 4), ("model", "n_class", 19),
+    ("model", "method", "source"), ("model", "fusion", "late"),
+    ("model", "upsample", "resize"), ("train", "opt", "adam"),
+])
+def test_resume_check_names_each_structural_field_as_jax(section, name, value):
+    base = ExperimentConfig()
+    drifted = dataclasses.replace(
+        base, **{section: dataclasses.replace(getattr(base, section), **{name: value})})
+    with pytest.raises(ValueError) as ours:
+        loops._check_resume_config(drifted, base, "runs/x/last")
+    with pytest.raises(ValueError) as theirs:
+        jax_check_resume_config(JaxExperimentConfig.from_dict(drifted.to_dict()),
+                                JaxExperimentConfig.from_dict(base.to_dict()), "runs/x/last")
+    assert str(ours.value) == str(theirs.value)
+    assert f"--{name}: checkpoint has" in str(ours.value)
+    loops._check_resume_config(base, base, "runs/x/last")  # no drift, no error
+
+
+def _argv(out_dir, epochs=2, *extra):
+    return ["--net", "drn_d_14", "--n_class", "40", "--dtype", "float32", "--batch_size", "2",
+            "--train_img_shape", "32", "24", "--max_samples", "2", "--epochs", str(epochs),
+            "--lr", "0.01", "--max_steps", "10", "--log_every", "1",
+            "--out_dir", str(out_dir), *extra]
+
+
+def _adapt(out_dir, epochs=2, *extra):
+    return adapt_train.main(["synthetic", "synthetic_shifted", "--num_k", "2", "--input_ch", "4",
+                             *_argv(out_dir, epochs, *extra)], device="cpu")
+
+
+def test_adapt_train_and_test_end_to_end(tmp_path):
+    run = tmp_path / "adapt"
+    state = _adapt(run, 2, "--keep_checkpoints", "1", "--eval_every_epochs", "1")
+    assert state.step == 2
+    assert sorted(os.listdir(run)) == ["args.json", "ep2.config.json", "ep2.pt",
+                                       "last.config.json", "last.pt", "train_log.jsonl"]
+    with open(run / "args.json") as f:
+        args_cfg = ExperimentConfig.from_dict(json.load(f))
+    params, cfg = load_params(str(run / "last"))
+    assert cfg == args_cfg and cfg.model.input_ch == 4 and cfg.model.method == "MCD"
+    with open(run / "train_log.jsonl") as f:
+        lines = [json.loads(ln) for ln in f]
+    steps = [r for r in lines if "loss_source" in r]
+    evals = [r for r in lines if "val_miou" in r]
+    assert [r["step"] for r in steps] == [0, 1]
+    assert all(np.isfinite(r[k]) for r in steps for k in ("loss_source", "loss_b", "loss_dis"))
+    assert [(r["step"], r["epoch"]) for r in evals] == [(1, 1), (2, 2)]
+    miou = adapt_test.main([str(run / "last")], device="cpu")
+    want, _, _ = evaluate(params, cfg, print_table=False, device="cpu")
+    assert miou == want and np.isfinite(miou)
+    f1_only = adapt_test.main([str(run / "last"), "--f1_only"], device="cpu")
+    assert f1_only == evaluate(params, cfg, print_table=False, device="cpu",
+                               average_classifiers=False)[0]
+
+
+def test_source_train_and_test_end_to_end(tmp_path):
+    run = tmp_path / "source"
+    state = source_train.main(["synthetic", "--input_ch", "1", *_argv(run, 2)], device="cpu")
+    assert state.step == 2
+    for name in ("args.json", "ep1.pt", "ep2.pt", "last.pt", "last.config.json"):
+        assert os.path.exists(run / name), name  # keep_checkpoints 0 keeps every epoch
+    with open(run / "train_log.jsonl") as f:
+        lines = [json.loads(ln) for ln in f]
+    assert [r["step"] for r in lines] == [0, 1] and all(np.isfinite(r["loss"]) for r in lines)
+    params, cfg = load_params(str(run / "last"))
+    assert cfg.model.method == "source" and cfg.model.input_ch == 1
+    f1 = evaluate(params, cfg, print_table=False, device="cpu", average_classifiers=False)[0]
+    both = evaluate(params, cfg, print_table=False, device="cpu")[0]
+    assert source_test.main([str(run / "last")], device="cpu") == f1
+    assert source_test.main([str(run / "last"), "--use_f2"], device="cpu") == both
+
+
+def test_cli_resume_repeats_the_uninterrupted_run(tmp_path, monkeypatch):
+    full = _adapt(tmp_path / "full", 2)
+    _adapt(tmp_path / "cut", 1)
+    last = str(tmp_path / "cut" / "last")
+    # a structural drift is refused before any state is built
+    calls = []
+    monkeypatch.setattr(loops, "load_checkpoint", lambda *a, **k: calls.append(a))
+    with pytest.raises(ValueError, match="--upsample: checkpoint has 'convt', CLI has 'resize'"):
+        _adapt(tmp_path / "cut", 2, "--resume", last, "--upsample", "resize")
+    assert not calls
+    monkeypatch.undo()
+    resumed = _adapt(tmp_path / "cut", 2, "--resume", last)
+    assert resumed.step == full.step == 2
+    for a, b in ((full.g, resumed.g), (full.f1, resumed.f1), (full.f2, resumed.f2)):
+        for (k, x), (_, y) in zip(a.state_dict().items(), b.state_dict().items()):
+            assert torch.equal(x, y), k
+
+
+def test_epoch_eval_hook_without_val_split(capsys, monkeypatch):
+    def no_split(*a, **k):
+        raise FileNotFoundError("no val split")
+
+    monkeypatch.setattr(_epoch_eval, "get_dataset", no_split)
+    assert _epoch_eval.make_epoch_eval_hook(ExperimentConfig(), 1, device="cpu") is None
+    assert "epoch-end eval disabled" in capsys.readouterr().out
+    assert _epoch_eval.make_epoch_eval_hook(ExperimentConfig(), 0, device="cpu") is None

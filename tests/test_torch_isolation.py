@@ -1,11 +1,14 @@
 """The port stands alone: importing every module of ``mcseg_tpu_torch``
+(the command-line entry points and their console-script shims included)
 loads neither ``jax`` nor ``mcseg_tpu``, and its entry points (serving,
-evaluation, training) refuse to run on a CUDA device that is not there (no
-silent CPU fallback).
+evaluation, training, the four commands) refuse to run on a CUDA device
+that is not there (no silent CPU fallback).
 
 Runs in a fresh interpreter, since this test process has JAX loaded."""
 
+import importlib
 import os
+import re
 import subprocess
 import sys
 
@@ -21,13 +24,17 @@ for m in mods:
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "mcseg_tpu"))
 assert not leaked, leaked
-assert len(mods) >= 25, mods
+assert len(mods) >= 35, mods
+assert {"mcseg_tpu_torch._scripts", "mcseg_tpu_torch.cli.adapt_train",
+        "mcseg_tpu_torch.cli.adapt_test", "mcseg_tpu_torch.cli.source_train",
+        "mcseg_tpu_torch.cli.source_test"} <= set(mods), mods
 
 from mcseg_tpu_torch.core.config import DataConfig, ExperimentConfig, ModelConfig
 from mcseg_tpu_torch.eval.serving import make_serve_fn
 from mcseg_tpu_torch.eval.tester import evaluate
 from mcseg_tpu_torch.models.factory import init_models
-from mcseg_tpu_torch.train.loops import train_adapt
+from mcseg_tpu_torch.cli import adapt_test, adapt_train, source_test, source_train
+from mcseg_tpu_torch.train.loops import train_adapt, train_source
 from mcseg_tpu_torch.train.state import create_train_state
 
 cfg = ExperimentConfig(model=ModelConfig(net="drn_d_14", input_ch=6, n_class=8),
@@ -39,7 +46,14 @@ if not torch.cuda.is_available():
                  lambda: make_serve_fn(cfg, params, device="cuda"),
                  lambda: evaluate(params, cfg, max_batches=1),
                  lambda: train_adapt(cfg),
-                 lambda: create_train_state(cfg.model, cfg.train)):
+                 lambda: train_source(cfg),
+                 lambda: create_train_state(cfg.model, cfg.train),
+                 lambda: adapt_train.main(["synthetic", "synthetic_shifted",
+                                           "--out_dir", "/nonexistent/never_written"]),
+                 lambda: source_train.main(["synthetic",
+                                            "--out_dir", "/nonexistent/never_written"]),
+                 lambda: adapt_test.main(["/nonexistent/never_read"]),
+                 lambda: source_test.main(["/nonexistent/never_read"])):
         try:
             call()
         except RuntimeError as e:
@@ -56,3 +70,18 @@ def test_port_imports_no_jax_and_needs_cuda_by_default():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "ISOLATED" in out.stdout
+
+
+def test_torch_console_scripts_resolve():
+    """Every ``mcseg-torch-*`` entry of pyproject.toml's [project.scripts]
+    names a callable of the port's shim module, one per command."""
+    with open(os.path.join(REPO, "pyproject.toml")) as f:
+        body = f.read()
+    block = re.search(r"\[project\.scripts\]\n((?:[^\[\n][^\n]*\n)+)", body).group(1)
+    entries = dict(re.findall(r'^(mcseg-torch-[\w-]+) = "([\w.]+:\w+)"', block, re.M))
+    assert sorted(entries) == ["mcseg-torch-adapt-test", "mcseg-torch-adapt-train",
+                               "mcseg-torch-source-test", "mcseg-torch-source-train"]
+    for script, target in entries.items():
+        module, attr = target.split(":")
+        assert module == "mcseg_tpu_torch._scripts", script
+        assert callable(getattr(importlib.import_module(module), attr)), script

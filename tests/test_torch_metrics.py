@@ -51,14 +51,15 @@ def test_config_reads_jax_sidecar_unchanged():
 
 
 def test_label_spec_matches_jax():
-    for name in ("nyu", "suncg", "synthetic", "synthetic_shifted"):
+    for name in ("nyu", "nyudv2", "suncg", "synthetic", "synthetic_shifted",
+                 "city", "cityscapes", "gta", "gta5", "ir", "synthia"):
         n, table, names, palette = labels.get_label_spec(name)
         jn, jtable, jnames, jpalette = jax_labels.get_label_spec(name)
         assert (n, tuple(names)) == (jn, tuple(jnames))
         np.testing.assert_array_equal(table, jtable)
         np.testing.assert_array_equal(palette, jpalette)
     with pytest.raises(ValueError):
-        labels.get_label_spec("cityscapes")  # not ported yet
+        labels.get_label_spec("kitti")  # no label space of the reference
 
 
 @pytest.mark.parametrize("name", ["synthetic", "synthetic_shifted"])

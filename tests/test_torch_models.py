@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import jax_params, x64
+from _torch_parity import jax_params, port_params_jax_layout, x64
 from mcseg_tpu.core.config import ModelConfig as JaxModelConfig
 from mcseg_tpu.models.factory import get_models as jax_get_models
 from mcseg_tpu.models.heads import PixelClassifier as JaxPixelClassifier
@@ -127,6 +127,23 @@ def test_params_from_jax_covers_every_tensor_and_raises_on_leftovers():
     no_stats = {**stats, "G": {k: v for k, v in stats["G"].items() if k != "bn0"}}
     with pytest.raises(KeyError):
         params_from_jax(params, no_stats)
+    # the Bottleneck, arch C and late-fusion trees (names and shapes of the
+    # JAX initializer's, by jax.eval_shape) map by name alone too
+    for kw, stray in ((dict(net="drn_d_54"), ("layer5", "block1", "bn3")),
+                      (dict(net="drn_c_26"), ("layer8", "block0", "bn2")),
+                      (dict(net="drn_d_14", fusion="late"), ("hha_trunk", "layer3", "block0", "bn1"))):
+        jcfg = JaxModelConfig(input_ch=6, n_class=8, dtype="float32", **kw)
+        params, stats = port_params_jax_layout(jcfg, img_hw=(16, 16))
+        sd = params_from_jax(params, stats)
+        for mod, name in zip(get_models(ModelConfig(input_ch=6, n_class=8, **kw)),
+                             ("G", "F1", "F2")):
+            mod.load_state_dict(sd[name], strict=True)
+        bn = stats["G"]
+        for key in stray[:-1]:
+            bn = bn[key]
+        bn[stray[-1]]["ghost"] = np.zeros(1)  # a statistic the port has no place for
+        with pytest.raises(KeyError):
+            params_from_jax(params, stats)
 
 
 def test_init_models_seeded_and_matches_jax_statistics():
