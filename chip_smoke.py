@@ -10,10 +10,13 @@ PyTorch version on the card, drives the serving path at full width
 random weights from a seed) through ``make_serve_fn`` and ``evaluate``, then
 the MCD training path at the same width (``num_k`` 4, synthetic ->
 synthetic_shifted) through the training iteration and ``train_adapt``, then
-the four reference commands (``cli.adapt_train``, ``adapt_test``,
-``source_train``, ``source_test``) through their ``main``, then one MCD
-configuration of every other trunk, fusion mode and channel stack the
-flags accept, and checks that each path launched the kernels. Every phase prints one JSON line
+the multitask trainer (segmentation plus depth and boundary heads, MCD)
+at the same width through its iteration, ``train_multitask``, the tester
+and depth serving, then the reference commands (``cli.adapt_train``,
+``adapt_test``, ``source_train``, ``source_test``, ``multitask_train``)
+through their ``main``, then one MCD configuration of every other trunk,
+fusion mode and channel stack the flags accept, and checks that each path
+launched the kernels. Every phase prints one JSON line
 and any failure raises (exit code != 0), a ptxas spill included. Kernel
 times are L2-cold, as the serving path finds its inputs: each timing
 rotates over input sets that together move 3x the 50 MB L2, and a reading
@@ -54,6 +57,7 @@ TRAIN_WARMUP, TRAIN_TIMED = 2, 5  # MCD iterations
 CARD_VS_CPU_BOUNDS = {"loss": 2e-3, "update": 4e-2, "param": 5e-5,
                       "running_mean": 1e-2, "running_var": 3e-2}
 DEVICE = "cuda"  # the card the training phase runs on
+MT_DEPTH_WEIGHT, MT_BOUNDARY_WEIGHT = 0.5, 1.0  # the multitask phase's loss weights
 
 
 def emit(phase, **fields):
@@ -431,7 +435,15 @@ def _raw_pair(cfg, n, device):
 
 def _snapshot(state):
     return {name: {k: v.detach().clone() for k, v in m.state_dict().items()}
-            for name, m in (("G", state.g), ("F1", state.f1), ("F2", state.f2))}
+            for name, m in state.modules().items()}
+
+
+def _unchanged(before, after):
+    """The floating-point tensors of every module that training left equal."""
+    import torch
+
+    return [f"{n}.{k}" for n, sd in before.items() for k, v in sd.items()
+            if v.is_floating_point() and torch.equal(v, after[n][k])]
 
 
 def _small_iteration(dtype, device, params, **family):
@@ -463,8 +475,8 @@ def _iteration_errors(got, ref):
     deviation (a mean near 0 has no scale of its own), running variances
     relative, both the largest over elements."""
     (m_got, b_got, a_got), (m_ref, b_ref, a_ref) = got, ref
-    err = {"loss": max(abs(m_got[k] - m_ref[k]) / abs(m_ref[k])
-                       for k in ("loss_source", "loss_b", "loss_dis")),
+    losses = ("loss_source", "loss_b", "loss_dis", "loss_depth", "loss_boundary")
+    err = {"loss": max(abs(m_got[k] - m_ref[k]) / abs(m_ref[k]) for k in losses if k in m_ref),
            "update": 0.0, "param": 0.0, "running_mean": 0.0, "running_var": 0.0}
     for n, sd in a_ref.items():
         d_num = d_den = p_num = p_den = 0.0
@@ -666,12 +678,7 @@ def phase_train(smi_line):
     bad = [m for m in metrics if not all(math.isfinite(v) for v in m.values())]
     if bad:
         raise AssertionError(f"non-finite metrics: {bad}")
-    after = _snapshot(state)
-    unchanged = []
-    for name in ("G", "F1", "F2"):
-        for key, v in before[name].items():
-            if v.is_floating_point() and torch.equal(v, after[name][key]):
-                unchanged.append(f"{name}.{key}")
+    unchanged = _unchanged(before, _snapshot(state))
     if unchanged:
         raise AssertionError(f"not updated by training: {unchanged[:10]}")
     ms = statistics.median(times)
@@ -701,9 +708,145 @@ def phase_train(smi_line):
     return launches
 
 
-def _cli_argv(out_dir):
+def _multitask_loop(smi_line):
+    """``train_multitask`` (MCD, both heads) for 2 iterations at full width
+    with a checkpoint per epoch, then ``evaluate`` of that checkpoint for
+    one batch, whose table must carry the depth and boundary lines, then
+    one depth-serving request of it."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mcseg_tpu_torch.eval.serving import make_serve_fn
+    from mcseg_tpu_torch.eval.tester import evaluate
+    from mcseg_tpu_torch.ops.normalize import fused_normalize_stack
+    from mcseg_tpu_torch.train.loops import train_multitask
+    from mcseg_tpu_torch.utils.checkpoint import load_params
+    from mcseg_tpu_torch.utils.logging import JsonlLogger
+
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build"), prefix="mt_") as out_dir:
+        cfg = _train_config("bfloat16", epochs=1, out_dir=out_dir, log_every=1)
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, max_samples=2 * B))
+        fused_normalize_stack.launches = 0
+        t0 = time.perf_counter()
+        state = train_multitask(
+            cfg, MT_DEPTH_WEIGHT, MT_BOUNDARY_WEIGHT, adapt=True,
+            logger=JsonlLogger(os.path.join(out_dir, "log.jsonl"), echo=False), device=DEVICE)
+        loop_s = time.perf_counter() - t0
+        loop_launches = fused_normalize_stack.launches
+        if state.step != 2 or loop_launches != 4:
+            raise AssertionError(f"train_multitask: {state.step} iterations, "
+                                 f"{loop_launches} kernel launches")
+        with open(os.path.join(out_dir, "log.jsonl")) as f:
+            logged = [json.loads(ln) for ln in f]
+        params, ckpt_cfg = load_params(os.path.join(out_dir, "last"))
+        if sorted(params) != ["B", "D", "F1", "F2", "G"]:
+            raise AssertionError(f"multitask checkpoint holds {sorted(params)}")
+        fused_normalize_stack.launches = 0
+        t0 = time.perf_counter()
+        miou, hist, table = evaluate(params, ckpt_cfg, max_batches=1, print_table=False,
+                                     device=DEVICE)
+        eval_s = time.perf_counter() - t0
+        aux_lines = [ln for ln in table.splitlines() if ln.startswith(("depth:", "boundary"))]
+        if (fused_normalize_stack.launches != 1 or not np.isfinite(miou) or hist.sum() == 0
+                or len(aux_lines) != 3):
+            raise AssertionError(f"evaluate of the multitask checkpoint: mIoU {miou}, "
+                                 f"{fused_normalize_stack.launches} launches, lines {aux_lines}")
+        ds = _raw_pair(ckpt_cfg, B, "cpu")[1]
+        serve = make_serve_fn(ckpt_cfg, params, device=DEVICE, with_depth=True)
+        fused_normalize_stack.launches = 0
+        pred, depth = serve({"image": ds["image"], "depth": ds["depth"]})
+        torch.cuda.synchronize()
+        if (fused_normalize_stack.launches != 1 or depth.dtype != torch.float32
+                or tuple(depth.shape) != (B, H, W) or tuple(pred.shape) != (B, H, W)
+                or not bool(torch.isfinite(depth).all())):
+            raise AssertionError(f"depth serving: {tuple(depth.shape)} {depth.dtype}, "
+                                 f"{fused_normalize_stack.launches} launches")
+        ckpt_mb = os.path.getsize(os.path.join(out_dir, "last.pt")) / 1e6
+    return {"iterations": state.step, "seconds": loop_s, "launches": loop_launches,
+            "logged": logged, "checkpoint_mb": ckpt_mb, "eval_miou": miou,
+            "eval_seconds": eval_s, "eval_launches": 1, "eval_aux_lines": aux_lines,
+            "serve_depth_m": [float(depth.min()), float(depth.max())], "serve_launches": 1,
+            "card": smi_line,
+            "note": "includes host decode of the synthetic corpora and two checkpoints"}
+
+
+def phase_multitask(smi_line):
+    """The multitask MCD iteration of the train cell's model with a depth
+    and a boundary head (weights 0.5 and 1.0): timed like phase ``train``,
+    2 launches per iteration, finite losses, every tensor of G, F1, F2, D
+    and B moved; a float64 card-vs-CPU step on inputs preprocessed once on
+    the CPU; then ``train_multitask``, ``evaluate`` and depth serving."""
+    import math
+
+    import torch
+
+    from mcseg_tpu_torch.models.factory import init_aux_heads, init_models
+    from mcseg_tpu_torch.ops.normalize import fused_normalize_stack
+    from mcseg_tpu_torch.train.loops import make_multitask_iteration
+    from mcseg_tpu_torch.train.state import create_train_state
+
+    t_phase = time.perf_counter()
+    cfg = _train_config("bfloat16")
+    state = create_train_state(cfg.model, cfg.train, 0, DEVICE, aux_heads=("D", "B"))
+    src, tgt = _raw_pair(cfg, B, DEVICE)  # staged on the card before timing
+    iterate = make_multitask_iteration(cfg, MT_DEPTH_WEIGHT, MT_BOUNDARY_WEIGHT)
+    before = _snapshot(state)
+    for _ in range(TRAIN_WARMUP):
+        iterate(state, src, tgt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_normalize_stack.launches = 0  # count only the main path from here
+    times, metrics = [], []
+    for i in range(TRAIN_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = iterate(state, src, tgt)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if fused_normalize_stack.launches != 2 * (i + 1):
+            raise AssertionError(f"multitask iteration {i}: normalize kernel launched "
+                                 f"{fused_normalize_stack.launches} times in total")
+    launches = fused_normalize_stack.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError(f"multitask: non-finite metrics {metrics}")
+    unchanged = _unchanged(before, _snapshot(state))
+    if unchanged or sorted(before) != ["B", "D", "F1", "F2", "G"]:
+        raise AssertionError(f"multitask: not updated by training: {unchanged[:10]}")
+    ms = statistics.median(times)
+    breakdown = _train_breakdown(iterate, state, src, tgt)
+    del state, before
+    torch.cuda.empty_cache()
+
+    small = _train_config("float32", hw=(48, 64), batch=2)
+    gen = torch.Generator().manual_seed(0)
+    params = init_models(small.model, gen)
+    params.update(init_aux_heads(small.model, ("D", "B"), gen))
+    card_vs_cpu, failures = _family_card_vs_cpu({}, params)
+    loop = _multitask_loop(smi_line)
+    emit("multitask", phase_seconds=time.perf_counter() - t_phase, net=cfg.model.net, input_ch=6, n_class=40, batch=B, hw=[H, W],
+         dtype="bfloat16", num_k=cfg.train.num_k, upsample="convt",
+         depth_weight=MT_DEPTH_WEIGHT, boundary_weight=MT_BOUNDARY_WEIGHT,
+         warmup=TRAIN_WARMUP, iterations=TRAIN_TIMED, launches=launches,
+         launches_per_iteration=launches / TRAIN_TIMED,
+         ms_per_iteration=ms, ms_per_iteration_all=times,
+         images_per_s=2 * B / ms * 1e3, peak_mem_gb=peak_gb, metrics=metrics,
+         breakdown_ms=breakdown, card_vs_cpu=card_vs_cpu, bounds=CARD_VS_CPU_BOUNDS,
+         loop=loop, card=smi_line,
+         note="device rate: raw batches staged on the card; images counted as "
+              "source plus target (2 x batch) per iteration; random weights")
+    if failures:
+        raise AssertionError(f"multitask card vs CPU float64 step: {failures}")
+    return launches
+
+
+def _cli_argv(out_dir, input_ch=6):
     """The reference command line of the ``cli`` phase at full width."""
-    return ["--net", "drn_d_38", "--input_ch", "6", "--train_img_shape", str(W), str(H),
+    return ["--net", "drn_d_38", "--input_ch", str(input_ch), "--train_img_shape", str(W), str(H),
             "--batch_size", str(B), "--dtype", "bfloat16", "--max_samples", str(2 * B),
             "--epochs", "1", "--log_every", "1", "--out_dir", out_dir]
 
@@ -722,16 +865,22 @@ def _logged(out_dir, keys):
 
 
 def phase_cli(smi_line):
-    """The four reference commands in process through their ``main`` on the
+    """The reference commands in process through their ``main`` on the
     card, at full width, each with the launch count reset just before it
-    and read just after; a ``--resume`` whose ``--upsample`` differs from
-    the checkpoint's must raise, and ``python -m ...adapt_test`` must exit
-    0 and print the IoU table."""
+    and read just after: the four of MCD and source-only training and
+    testing, then ``multitask_train --input_ch 3 --source_only`` and
+    ``adapt_test`` of its checkpoint, whose table must carry the depth
+    line; a ``--resume`` whose ``--upsample`` differs from the
+    checkpoint's must raise, and ``python -m ...adapt_test`` must exit 0
+    and print the IoU table."""
+    import contextlib
+    import io
     import tempfile
 
     import numpy as np
 
-    from mcseg_tpu_torch.cli import adapt_test, adapt_train, source_test, source_train
+    from mcseg_tpu_torch.cli import (
+        adapt_test, adapt_train, multitask_train, source_test, source_train)
     from mcseg_tpu_torch.ops.normalize import fused_normalize_stack
 
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
@@ -770,6 +919,24 @@ def phase_cli(smi_line):
         report["source_test"]["miou"] = miou_f1
         if not (np.isfinite(miou) and np.isfinite(miou_f1)):
             raise AssertionError(f"mIoU adapt {miou}, source {miou_f1}")
+        # the multitask command with the stack of the JAX package's documented
+        # multitask run (RGB only), source-only, then the test command on it
+        mt_dir = os.path.join(tmp, "multitask")
+        state = run("multitask_train", lambda: multitask_train.main(
+            ["synthetic", "synthetic_shifted", "--source_only", "--depth_weight",
+             str(MT_DEPTH_WEIGHT)] + _cli_argv(mt_dir, input_ch=3), device=DEVICE), 2)
+        logged = _logged(mt_dir, ("loss", "loss_seg", "loss_depth"))
+        if state.step != 2 or len(logged) != 2 or state.d is None:
+            raise AssertionError(f"multitask_train: {state.step} steps, {len(logged)} logged")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            miou_mt = run("multitask_adapt_test", lambda: adapt_test.main(
+                [os.path.join(mt_dir, "last")], device=DEVICE), eval_batches)
+        depth_line = [ln for ln in out.getvalue().splitlines() if ln.startswith("depth:")]
+        if not np.isfinite(miou_mt) or len(depth_line) != 1:
+            raise AssertionError(f"adapt_test of the multitask checkpoint: mIoU {miou_mt}\n"
+                                 f"{out.getvalue()[-1000:]}")
+        report["multitask_adapt_test"].update(miou=miou_mt, depth_line=depth_line[0])
         # a structural drift on resume is refused before any state is built
         try:
             run("resume_upsample_drift", lambda: adapt_train.main(
@@ -852,14 +1019,12 @@ def _family_run(family, smi_line):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if not all(math.isfinite(v) for m in metrics for v in m.values()):
         raise AssertionError(f"{family}: non-finite metrics {metrics}")
-    after = _snapshot(state)
-    unchanged = [f"{n}.{k}" for n in ("G", "F1", "F2") for k, v in before[n].items()
-                 if v.is_floating_point() and torch.equal(v, after[n][k])]
+    unchanged = _unchanged(before, _snapshot(state))
     if unchanged:
         raise AssertionError(f"{family}: not updated by training: {unchanged[:10]}")
     ms = statistics.median(times)
     n_params = sum(p.numel() for m in (state.g, state.f1, state.f2) for p in m.parameters())
-    del state, before, after
+    del state, before
     torch.cuda.empty_cache()
     return {"family": {"net": cfg.model.net, "input_ch": cfg.model.input_ch,
                        "fusion": cfg.model.fusion},
@@ -874,22 +1039,29 @@ def _family_run(family, smi_line):
 
 def _family_step(dtype, device, params, inputs, cfg):
     """One MCD step (A / B / C x num_k) of ``cfg``'s model from ``params``
-    on ``inputs`` (preprocessed xs, ys, xt on the CPU), on ``device`` in
-    ``dtype``: (metrics, weights before, weights after), the weights on the
-    CPU."""
+    on ``inputs`` (preprocessed xs, ys, xt on the CPU; xs, ys, ds, xt for
+    the multitask step, whose ``params`` hold the auxiliary heads), on
+    ``device`` in ``dtype``: (metrics, weights before, weights after), the
+    weights on the CPU."""
     import torch
 
     from mcseg_tpu_torch.core.device import compute_dtype
     from mcseg_tpu_torch.train.mcd import make_mcd_step
+    from mcseg_tpu_torch.train.multitask import make_multitask_mcd_step
     from mcseg_tpu_torch.train.state import create_train_state
 
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype=dtype))
     dt = compute_dtype(dtype)
-    state = create_train_state(cfg.model, cfg.train, 0, device, params=params)
+    aux = [k for k in ("D", "B") if k in params]
+    state = create_train_state(cfg.model, cfg.train, 0, device, params=params, aux_heads=aux)
     before = _snapshot(state)
-    xs, ys, xt = inputs
-    metrics = make_mcd_step(cfg.train, False, dt)(
-        state, xs.to(device, dt), ys.to(device), xt.to(device, dt))
+    xs, ys, xt = inputs[0].to(device, dt), inputs[1].to(device), inputs[-1].to(device, dt)
+    if aux:
+        step = make_multitask_mcd_step(cfg.train, MT_DEPTH_WEIGHT, MT_BOUNDARY_WEIGHT, dt)
+        ds = inputs[2].to(device, torch.promote_types(dt, torch.float32))
+        metrics = step(state, xs, ys, ds, xt)
+    else:
+        metrics = make_mcd_step(cfg.train, False, dt)(state, xs, ys, xt)
 
     def cpu(snap):
         return {n: {k: v.cpu().double() for k, v in sd.items() if v.is_floating_point()}
@@ -898,7 +1070,28 @@ def _family_step(dtype, device, params, inputs, cfg):
     return {k: float(v) for k, v in metrics.items()}, cpu(before), cpu(_snapshot(state))
 
 
-def _family_card_vs_cpu(family):
+def _cpu_inputs(cfg, with_depth=False):
+    """The first train batch of source and target at ``cfg``'s shape,
+    preprocessed once on the CPU with iteration 0's draws: (xs, ys, xt)
+    NCHW, or (xs, ys, ds, xt) ``with_depth``."""
+    import torch
+
+    from mcseg_tpu_torch.ops.preprocess import (
+        draw_augment, make_train_preprocess, pre_crop_canvas)
+    from mcseg_tpu_torch.train.loops import augment_generator
+
+    pre, target = pre_crop_canvas(cfg.data)
+    gen = augment_generator(cfg.train.seed, 0)
+    src, tgt = _raw_pair(cfg, 2, "cpu")
+    b = src["image"].shape[0]
+    xs, ys, *ds = make_train_preprocess(cfg.data, torch.float32, with_depth=with_depth)(
+        src, *draw_augment(gen, b, pre, target, cfg.data))
+    xt, _ = make_train_preprocess(cfg.data, torch.float32)(
+        {k: v for k, v in tgt.items() if k != "label"}, *draw_augment(gen, b, pre, target, cfg.data))
+    return (xs.permute(0, 3, 1, 2), ys, *ds, xt.permute(0, 3, 1, 2))
+
+
+def _family_card_vs_cpu(family, params=None):
     """One MCD step at batch 2, 48x64 on the card and on the CPU from the
     same weights and the same preprocessed inputs (made once on the CPU),
     in float64, held to CARD_VS_CPU_BOUNDS, and in float32, reported
@@ -909,24 +1102,16 @@ def _family_card_vs_cpu(family):
     moves drn_d_54's update by ~6% (4e-2 bound), and its float32 update
     differs from float64 by as much; the card's kernel and HHA differ from
     the CPU's by more than 1e-7. Float64 on the same inputs shows that the
-    card computes the same step; float32 shows how far rounding goes."""
+    card computes the same step; float32 shows how far rounding goes.
+    ``params`` with auxiliary heads runs the multitask step."""
     import torch
 
     from mcseg_tpu_torch.models.factory import init_models
-    from mcseg_tpu_torch.ops.preprocess import (
-        draw_augment, make_train_preprocess, pre_crop_canvas)
-    from mcseg_tpu_torch.train.loops import augment_generator
 
     cfg = _train_config("float32", hw=(48, 64), batch=2, **family)
-    params = init_models(cfg.model, torch.Generator().manual_seed(0))
-    pp = make_train_preprocess(cfg.data, torch.float32)
-    pre, target = pre_crop_canvas(cfg.data)
-    gen = augment_generator(cfg.train.seed, 0)
-    src, tgt = _raw_pair(cfg, 2, "cpu")
-    xs, ys = pp(src, *draw_augment(gen, 2, pre, target, cfg.data))
-    xt, _ = pp({k: v for k, v in tgt.items() if k != "label"},
-               *draw_augment(gen, 2, pre, target, cfg.data))
-    inputs = (xs.permute(0, 3, 1, 2), ys, xt.permute(0, 3, 1, 2))
+    if params is None:
+        params = init_models(cfg.model, torch.Generator().manual_seed(0))
+    inputs = _cpu_inputs(cfg, with_depth="D" in params)
     card64 = _family_step("float64", DEVICE, params, inputs, cfg)
     cpu64 = _family_step("float64", "cpu", params, inputs, cfg)
     card32 = _family_step("float32", DEVICE, params, inputs, cfg)
@@ -969,6 +1154,7 @@ def phase_families(smi_line):
 
 
 def main():
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -989,8 +1175,10 @@ def main():
         raise AssertionError("the serving path never launched fused_normalize_stack")
     phase_eval()
     train_launches = phase_train(smi_line)
+    multitask_launches = phase_multitask(smi_line)
     cli_launches = phase_cli(smi_line)
     family_launches = phase_families(smi_line)
+    emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [{
         "name": "fused_normalize_stack", "route": "cuda", "source": KERNEL_SRC,
         "replaces": KERNEL_REPLACES, "launches": launches,
@@ -998,7 +1186,8 @@ def main():
         "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"], "library_ms": None,
         "share_of_bound": main_case["share_of_bound"],
-        "train_launches": train_launches, "cli_launches": cli_launches,
+        "train_launches": train_launches, "multitask_launches": multitask_launches,
+        "cli_launches": cli_launches,
         "family_launches": family_launches, "train_case_ms": train_case["kernel_ms"],
         "train_case_share_of_bound": train_case["share_of_bound"]}]}), flush=True)
     print(smi_line, flush=True)

@@ -23,6 +23,13 @@ def adapt_train():
     return 0
 
 
+def multitask_train():
+    from mcseg_tpu_torch.cli import multitask_train as m
+
+    m.main()
+    return 0
+
+
 def source_test():
     from mcseg_tpu_torch.cli import source_test as m
 

@@ -1,5 +1,5 @@
-"""The body the two training entry points share: parse, refuse unported
-flags, config, run directory with ``args.json``, run log, epoch-eval hook,
+"""The body the training entry points share: refuse unported flags,
+config, run directory with ``args.json``, run log, epoch-eval hook,
 training loop."""
 
 from __future__ import annotations
@@ -13,8 +13,9 @@ from mcseg_tpu_torch.utils.logging import make_run_logger
 from mcseg_tpu_torch.utils.util import mkdir_if_not_exist, save_dic_to_json
 
 
-def run_training(parser, train_fn, adapt: bool, argv, device):
-    args = parser.parse_args(argv)
+def run_training(args, train_fn, adapt: bool, device):
+    """Train with ``train_fn(cfg, logger=..., on_epoch_end=..., device=...)``
+    from the parsed command line ``args``; returns its result."""
     reject_unported(args)
     dev = resolve_device(device)
     cfg = args_to_config(args, adapt=adapt)

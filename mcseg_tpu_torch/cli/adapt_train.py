@@ -11,7 +11,8 @@ from mcseg_tpu_torch.train.loops import train_adapt
 def main(argv=None, device="cuda"):
     """Train from the command line ``argv`` on ``device``; returns the final
     train state."""
-    return run_training(get_da_mcd_training_parser(), train_adapt, True, argv, device)
+    args = get_da_mcd_training_parser().parse_args(argv)
+    return run_training(args, train_adapt, True, device)
 
 
 if __name__ == "__main__":

@@ -5,7 +5,11 @@ Per batch, all on the device: eval preprocess (with the normalize kernel)
 F1 and F2 -> bilinear resize of the logits to the label resolution ->
 argmax -> confusion-matrix accumulation. Only the final [n, n] matrix reaches the
 host. The tester and the serving path (eval/serving.py) both wrap
-``make_infer_fn``, so inference cannot drift between them.
+``make_infer_fn``, so inference cannot drift between them. A multitask
+checkpoint's auxiliary heads are scored too: the depth head "D" against
+the batch's depth in metres (``eval.depth_metrics``), the boundary head "B"
+against the edges of the labels, strict and within a tolerance
+(``boundary_match_sums``).
 """
 
 from __future__ import annotations
@@ -14,14 +18,17 @@ from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from mcseg_tpu_torch.core.config import ExperimentConfig
 from mcseg_tpu_torch.core.device import compute_context, compute_dtype, resolve_device
 from mcseg_tpu_torch.data.datasets import get_dataset, stack_samples
 from mcseg_tpu_torch.data.labels import IGNORE, get_label_spec
+from mcseg_tpu_torch.eval.depth_metrics import depth_metric_sums, finalize_depth_metrics
 from mcseg_tpu_torch.eval.metrics import fast_hist, format_iou_table, miou_from_hist
-from mcseg_tpu_torch.models.factory import Params, get_models
-from mcseg_tpu_torch.ops.preprocess import make_eval_preprocess
+from mcseg_tpu_torch.losses.seg import boundary_targets_from_labels
+from mcseg_tpu_torch.models.factory import Params, get_aux_heads, get_models
+from mcseg_tpu_torch.ops.preprocess import depth_to_meters, make_eval_preprocess
 from mcseg_tpu_torch.ops.upsample import resize_bilinear_nchw
 
 
@@ -93,19 +100,96 @@ def make_infer_fn(cfg: ExperimentConfig, params: Params, device="cuda",
     return infer
 
 
-def make_eval_step(cfg: ExperimentConfig, params: Params, device="cuda",
-                   average_classifiers: bool = True):
-    """``step(raw_batch) -> (hist [n, n] int64, pred [B,H,W] int32)``, both
-    on the device."""
-    infer = make_infer_fn(cfg, params, device, average_classifiers=average_classifiers)
-    n_class = cfg.model.n_class
+def load_aux_head(cfg: ExperimentConfig, params: Params, key: str, device) -> torch.nn.Module:
+    """The auxiliary head ``key`` ("D" or "B") of ``params`` on ``device``,
+    in eval mode, with the parameter dtype of ``make_infer_fn``'s modules."""
+    dt = torch.float64 if compute_dtype(cfg.model.dtype) == torch.float64 else torch.float32
+    head = get_aux_heads(cfg.model, (key,))[key]
+    head.load_state_dict(params[key])
+    return head.to(device, dt).to(memory_format=torch.channels_last).eval()
 
+
+def resize_to(x: torch.Tensor, hw) -> torch.Tensor:
+    """[B,C,h,w] -> [B,C,H,W] by bilinear resize, unless already there."""
+    return x if tuple(x.shape[2:]) == tuple(hw) else resize_bilinear_nchw(x, *hw)
+
+
+def boundary_match_sums(b_logits: torch.Tensor, label: torch.Tensor,
+                        tol: int = 2) -> Dict[str, torch.Tensor]:
+    """Boundary-head counts against the edges of ``label`` [B,H,W]
+    (``b_logits`` [B,1,H,W]): strict per-pixel tp/fp/fn at logit > 0, and
+    the matches within ``tol`` px (a predicted pixel with a true edge
+    within the radius, a true edge with a prediction within it: the
+    BSDS/BF-score convention)."""
+    tgt, valid = boundary_targets_from_labels(label)
+    hit = (b_logits[:, 0] > 0.0) & valid
+    pos = (tgt > 0.5) & valid
+
+    def dilate(mask):  # max over a (2 tol + 1)^2 window, clipped at the edges
+        k = 2 * tol + 1
+        return F.max_pool2d(mask[:, None].to(torch.float32), k, stride=1, padding=tol)[:, 0] > 0
+
+    return {"tp": (hit & pos).sum(), "fp": (hit & ~pos).sum(), "fn": (~hit & pos).sum(),
+            "tp_tol_p": (hit & dilate(pos)).sum(), "n_pred": hit.sum(),
+            "tp_tol_r": (pos & dilate(hit)).sum(), "n_gt": pos.sum()}
+
+
+def make_eval_step(cfg: ExperimentConfig, params: Params, device="cuda",
+                   average_classifiers: bool = True, with_depth: bool = False,
+                   with_boundary: bool = False, boundary_tol: int = 2):
+    """``step(raw_batch) -> (hist [n, n] int64, pred [B,H,W] int32, aux)``,
+    on the device. ``aux`` holds, with ``with_depth``, 'depth': the depth
+    head's ``depth_metric_sums`` against the batch's 'depth' in metres
+    (the prediction resized to its resolution), and with
+    ``with_boundary``, 'boundary': ``boundary_match_sums`` of the boundary
+    head (resized to the label resolution) at ``boundary_tol``."""
+    dev = resolve_device(device)
+    infer = make_infer_fn(cfg, params, dev, average_classifiers=average_classifiers)
+    n_class = cfg.model.n_class
+    dtype = compute_dtype(cfg.model.dtype)
+    d_head = load_aux_head(cfg, params, "D", dev) if with_depth else None
+    b_head = load_aux_head(cfg, params, "B", dev) if with_boundary else None
+
+    @torch.inference_mode()
     def step(raw_batch):
-        logits, label, _ = infer(raw_batch)
+        logits, label, feat = infer(raw_batch)
         pred = logits.argmax(-1).to(torch.int32)
-        return fast_hist(label, pred, n_class), pred
+        aux = {}
+        if d_head is not None:
+            with compute_context(dtype, dev):
+                d_pred = d_head(feat)
+            gt = depth_to_meters(torch.as_tensor(raw_batch["depth"]).to(dev))
+            aux["depth"] = depth_metric_sums(resize_to(d_pred, gt.shape[1:3]), gt)
+        if b_head is not None:
+            with compute_context(dtype, dev):
+                b_logits = b_head(feat)
+            aux["boundary"] = boundary_match_sums(resize_to(b_logits, label.shape[1:3]),
+                                                  label, boundary_tol)
+        return fast_hist(label, pred, n_class), pred, aux
 
     return step
+
+
+def _aux_table_lines(sums: Dict[str, Dict[str, float]], tol: int) -> str:
+    """The depth and boundary lines of the JAX tester's table."""
+    out = ""
+    if "depth" in sums:
+        dm = finalize_depth_metrics(sums["depth"])
+        out += (f"\ndepth: rmse={dm['rmse']:.4f} m  abs_rel={dm['abs_rel']:.4f}"
+                f"  delta<1.25={dm['delta_1.25']:.4f}")
+    if "boundary" in sums:
+        b = sums["boundary"]
+        prec = b["tp"] / max(b["tp"] + b["fp"], 1.0)
+        rec = b["tp"] / max(b["tp"] + b["fn"], 1.0)
+        f1_score = 2 * prec * rec / max(prec + rec, 1e-9)
+        prec_t = b["tp_tol_p"] / max(b["n_pred"], 1.0)
+        rec_t = b["tp_tol_r"] / max(b["n_gt"], 1.0)
+        f1_t = 2 * prec_t * rec_t / max(prec_t + rec_t, 1e-9)
+        out += (f"\nboundary (tol={tol}px): precision={prec_t:.4f}"
+                f"  recall={rec_t:.4f}  f1={f1_t:.4f}"
+                f"\nboundary (strict):  precision={prec:.4f}  recall={rec:.4f}"
+                f"  f1={f1_score:.4f}")
+    return out
 
 
 def padded_batches(dataset, bs: int) -> Iterator[Tuple[Dict[str, np.ndarray], int]]:
@@ -128,22 +212,36 @@ def evaluate(params: Params, cfg: ExperimentConfig, dataset=None,
              device="cuda", average_classifiers: bool = True):
     """Score ``params`` on ``dataset`` (default: the config's target corpus,
     val split) with F1 and F2 averaged, or F1 alone when
-    ``average_classifiers`` is False. Returns (miou, hist int64 [n, n]
+    ``average_classifiers`` is False. A multitask checkpoint's depth head
+    is scored when the corpus has depth, and its boundary head always;
+    their lines follow the IoU table. Returns (miou, hist int64 [n, n]
     numpy, table string)."""
     dev = resolve_device(device)
     dataset = dataset or get_dataset(cfg.data.tgt_dataset, cfg.data, "val")
     _, _, names, _ = get_label_spec(cfg.data.tgt_dataset)
-    step = make_eval_step(cfg, params, dev, average_classifiers)
+    with_depth = "D" in params and "depth" in dataset[0]
+    tol = 2
+    step = make_eval_step(cfg, params, dev, average_classifiers, with_depth=with_depth,
+                          with_boundary="B" in params, boundary_tol=tol)
     n_class = cfg.model.n_class
     bs = min(cfg.data.batch_size, len(dataset))
     total = torch.zeros((n_class, n_class), dtype=torch.int64, device=dev)
-    for bi, (raw, _) in enumerate(padded_batches(dataset, bs)):
+    aux_total = {}
+    for bi, (raw, n_real) in enumerate(padded_batches(dataset, bs)):
         if max_batches is not None and bi >= max_batches:
             break
-        hist, _ = step(raw)
+        if with_depth and n_real < bs:
+            raw["depth"][n_real:] = 0  # invalid, so the padding is masked out
+        hist, _, aux = step(raw)
         total += hist
+        for name, sums in aux.items():
+            acc = aux_total.setdefault(name, {})
+            for k, v in sums.items():
+                acc[k] = acc.get(k, 0) + v.double()
     total = total.cpu().numpy()
-    table = format_iou_table(total, names[:n_class])
+    table = format_iou_table(total, names[:n_class]) + _aux_table_lines(
+        {name: {k: float(v) for k, v in sums.items()} for name, sums in aux_total.items()},
+        tol)
     if print_table:
         print(table)
     return miou_from_hist(total), total, table

@@ -17,7 +17,9 @@ resolution against logits upsampled by the tester.
 Train (``make_train_preprocess``): the same planes, resized to a pre-crop
 canvas and cropped at per-sample offsets (bilinear for RGB and HHA, nearest
 for labels), then the per-sample flip and the normalize/stack in the same
-kernel. The random draws (``draw_augment``) are explicit inputs.
+kernel. The random draws (``draw_augment``) are explicit inputs. The
+multitask trainer's source batches also carry their depth plane in metres
+through the same geometry and flip (``with_depth``).
 """
 
 from __future__ import annotations
@@ -227,10 +229,13 @@ def draw_augment(gen: torch.Generator, b: int, pre: Tuple[int, int],
     return tops, lefts, flip
 
 
-def make_train_preprocess(cfg: DataConfig,
-                          out_dtype: torch.dtype = torch.float32) -> Callable:
+def make_train_preprocess(cfg: DataConfig, out_dtype: torch.dtype = torch.float32,
+                          with_depth: bool = False) -> Callable:
     """Train preprocess: ``preprocess(batch, tops, lefts, flip) -> (img
-    [B,H,W,input_ch] out_dtype, label int32 [B,H,W] or None)``.
+    [B,H,W,input_ch] out_dtype, label int32 [B,H,W] or None)``, plus a
+    third output with ``with_depth``: the batch's 'depth' in metres,
+    float32 [B,H,W], through the same geometry and flip as RGB (the
+    multitask trainer's depth target).
 
     ``batch`` holds the raw planes on one device (uint8 'image' and 'label',
     'depth' or 'hha'; a target batch has no 'label'); ``tops``/``lefts``
@@ -247,7 +252,7 @@ def make_train_preprocess(cfg: DataConfig,
 
     RGB and HHA stay two float32 tensors, NHWC-contiguous, and go to
     ``fused_normalize_stack`` with the flips; out_dtype rounds once there.
-    Labels are flipped with ``torch.where``."""
+    Labels and depth are flipped with ``torch.where``."""
     pre, target = pre_crop_canvas(cfg)
     _, table, _, _ = get_label_spec(cfg.src_dataset)
 
@@ -259,6 +264,7 @@ def make_train_preprocess(cfg: DataConfig,
             label = remap_labels(label, table)
         rgb = image.to(torch.float32) / 255.0
         extra = _extra_channels(batch, cfg.input_ch, cfg.hha_on_device)
+        depth = depth_to_meters(batch["depth"])[..., None] if with_depth else None
         h0, w0 = image.shape[1:3]
         tops, lefts = tops.to(dev), lefts.to(dev)
         if cfg.random_crop and pre != target and pre[0] >= h0 and pre[1] >= w0:
@@ -268,6 +274,8 @@ def make_train_preprocess(cfg: DataConfig,
             rgb = _lerp_axis(_lerp_axis(rgb, rows, 1), cols, 2)
             if extra is not None:
                 extra = _lerp_axis(_lerp_axis(extra, rows, 1), cols, 2)
+            if depth is not None:
+                depth = _lerp_axis(_lerp_axis(depth, rows, 1), cols, 2)
             if label is not None:
                 label = _gather_rows(_gather_rows(label, _nearest(t_rows, h0), 1),
                                      _nearest(t_cols, w0), 2)
@@ -275,14 +283,20 @@ def make_train_preprocess(cfg: DataConfig,
             rgb = _crop(resize_bilinear(rgb, pre), tops, lefts, target)
             if extra is not None:
                 extra = _crop(resize_bilinear(extra, pre), tops, lefts, target)
+            if depth is not None:
+                depth = _crop(resize_bilinear(depth, pre), tops, lefts, target)
             if label is not None:
                 label = _crop(_resize_nearest_labels(label, pre), tops, lefts, target)
         flip = flip.to(device=dev, dtype=torch.int32)
+        flipped = (flip > 0)[:, None, None]
         if label is not None:
-            label = torch.where((flip > 0)[:, None, None], label.flip(-1), label)
+            label = torch.where(flipped, label.flip(-1), label)
         img = fused_normalize_stack(rgb.contiguous(),
                                     None if extra is None else extra.contiguous(),
                                     flip, cfg.input_ch, out_dtype)
-        return img, label
+        if depth is None:
+            return img, label
+        depth = depth[..., 0]
+        return img, label, torch.where(flipped, depth.flip(-1), depth)
 
     return preprocess

@@ -1,11 +1,11 @@
-"""The training loops: MCD adaptation and source-only.
+"""The training loops: MCD adaptation, source-only and multitask.
 
-The port of the JAX package's ``train/loops.py`` ``train_adapt`` and
-``train_source``. Batches of raw planes (zipped source and target for
-adaptation) go to the device, through the train preprocess (with the
-normalize kernel) and the step. The crop and flip draws of iteration
+The port of the JAX package's ``train/loops.py`` ``train_adapt``,
+``train_source`` and ``train_multitask``. Batches of raw planes (zipped
+source and target for adaptation) go to the device, through the train
+preprocess (with the normalize kernel) and the step. The crop and flip draws of iteration
 ``step`` come from a generator seeded by ``(seed + 1, step)``, so a resumed
-run repeats an uninterrupted one. Both loops share one body
+run repeats an uninterrupted one. The loops share one body
 (``_train_loop``): the NaN guard at log points, a graceful stop on
 SIGTERM/SIGINT or after ``max_hours``, per-epoch checkpoints pruned to
 ``keep_checkpoints``, ``last`` at the end, and resume from an epoch
@@ -18,7 +18,7 @@ import math
 import os
 import signal
 import time
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -28,9 +28,12 @@ from mcseg_tpu_torch.core.device import compute_dtype, resolve_device
 from mcseg_tpu_torch.data.datasets import ZipDataset, get_dataset
 from mcseg_tpu_torch.data.pipeline import batch_iterator
 from mcseg_tpu_torch.eval.tester import batch_to_device
+from mcseg_tpu_torch.models.factory import get_aux_heads
 from mcseg_tpu_torch.ops.preprocess import (
     draw_augment, make_train_preprocess, pre_crop_canvas)
 from mcseg_tpu_torch.train.mcd import make_mcd_step
+from mcseg_tpu_torch.train.multitask import (
+    aux_head_keys, make_multitask_mcd_step, make_multitask_source_step)
 from mcseg_tpu_torch.train.source import make_source_step
 from mcseg_tpu_torch.train.state import MCDTrainState, create_train_state
 from mcseg_tpu_torch.utils.checkpoint import (
@@ -97,6 +100,52 @@ def make_source_iteration(cfg: ExperimentConfig) -> Callable:
         gen = augment_generator(cfg.train.seed, state.step)
         x, y = pp(src, *draw_augment(gen, src["image"].shape[0], pre, target, cfg.data))
         return step(state, as_input(x), y)
+
+    return iterate
+
+
+def make_multitask_iteration(cfg: ExperimentConfig, depth_weight: float = 0.5,
+                             boundary_weight: float = 0.0) -> Callable:
+    """``iterate(state, src, tgt, mark=None) -> metrics``: one multitask MCD
+    iteration — train preprocess of the source batch with its depth plane
+    and of the target batch (two launches of the normalize kernel), then
+    ``make_multitask_mcd_step``. The target batch's labels are not read.
+    ``mark`` as in ``make_adapt_iteration``."""
+    dtype = compute_dtype(cfg.model.dtype)
+    pp_src = make_train_preprocess(cfg.data, _img_dtype(dtype), with_depth=True)
+    pp_tgt = make_train_preprocess(cfg.data, _img_dtype(dtype))
+    step = make_multitask_mcd_step(cfg.train, depth_weight, boundary_weight, dtype)
+    pre, target = pre_crop_canvas(cfg.data)
+    as_input = _as_input(dtype)
+
+    def iterate(state: MCDTrainState, src, tgt, mark=None):
+        gen = augment_generator(cfg.train.seed, state.step)
+        b = src["image"].shape[0]
+        xs, ys, ds = pp_src(src, *draw_augment(gen, b, pre, target, cfg.data))
+        xt, _ = pp_tgt({k: v for k, v in tgt.items() if k != "label"},
+                       *draw_augment(gen, b, pre, target, cfg.data))
+        if mark:
+            mark("preprocess")
+        return step(state, as_input(xs), ys, ds, as_input(xt), mark)
+
+    return iterate
+
+
+def make_multitask_source_iteration(cfg: ExperimentConfig, depth_weight: float = 0.5,
+                                    boundary_weight: float = 0.0) -> Callable:
+    """``iterate(state, src) -> metrics``: one source-only multitask step —
+    train preprocess with the depth plane (one launch of the normalize
+    kernel), then ``make_multitask_source_step``."""
+    dtype = compute_dtype(cfg.model.dtype)
+    pp = make_train_preprocess(cfg.data, _img_dtype(dtype), with_depth=True)
+    step = make_multitask_source_step(cfg.train, depth_weight, boundary_weight, dtype)
+    pre, target = pre_crop_canvas(cfg.data)
+    as_input = _as_input(dtype)
+
+    def iterate(state: MCDTrainState, src):
+        gen = augment_generator(cfg.train.seed, state.step)
+        x, y, d = pp(src, *draw_augment(gen, src["image"].shape[0], pre, target, cfg.data))
+        return step(state, as_input(x), y, d)
 
     return iterate
 
@@ -174,21 +223,45 @@ def _check_resume_config(cli_cfg: ExperimentConfig, ckpt_cfg: ExperimentConfig,
         )
 
 
-def _init_or_resume(cfg: ExperimentConfig, dev: torch.device) -> MCDTrainState:
+def _check_resume_heads(state: MCDTrainState, aux_heads: Sequence[str],
+                        resume_path: str) -> None:
+    """The multitask trainer's checks of a resumed state, with the JAX
+    package's messages: a depth head, and a boundary head exactly when the
+    run trains one."""
+    if state.d is None:
+        raise ValueError(
+            f"--resume {resume_path!r} is not a multitask checkpoint "
+            "(no 'D' depth-head subtree)")
+    has_b, want_b = state.b is not None, "B" in aux_heads
+    if has_b != want_b:
+        raise ValueError(
+            f"--resume {resume_path!r}: boundary-head mismatch — "
+            f"checkpoint {'has' if has_b else 'lacks'} a 'B' "
+            f"subtree but --boundary_weight is "
+            f"{'set' if want_b else 'unset'}")
+
+
+def _init_or_resume(cfg: ExperimentConfig, dev: torch.device,
+                    aux_heads: Sequence[str] = ()) -> MCDTrainState:
     if cfg.train.resume:
         _check_resume_config(cfg, load_config(cfg.train.resume), cfg.train.resume)
         state, _ = load_checkpoint(cfg.train.resume, dev, config=cfg)
+        if aux_heads:
+            _check_resume_heads(state, aux_heads, cfg.train.resume)
         return state
-    return create_train_state(cfg.model, cfg.train, cfg.train.seed, dev)
+    return create_train_state(cfg.model, cfg.train, cfg.train.seed, dev,
+                              aux_heads=aux_heads)
 
 
 def _train_loop(cfg: ExperimentConfig, dataset, iterate: Callable,
                 logger: Optional[JsonlLogger], max_iterations: Optional[int],
-                on_epoch_end: Optional[Callable], dev: torch.device) -> MCDTrainState:
-    """The loop both trainers share: ``iterate(state, *raw_batches)`` on
+                on_epoch_end: Optional[Callable], dev: torch.device,
+                aux_heads: Sequence[str] = ()) -> MCDTrainState:
+    """The loop the trainers share: ``iterate(state, *raw_batches)`` on
     each item of the seeded batch stream of ``dataset`` (a pair of batches
-    for a ZipDataset), moved to ``dev`` first."""
-    state = _init_or_resume(cfg, dev)
+    for a ZipDataset), moved to ``dev`` first; the state carries the
+    auxiliary heads ``aux_heads``."""
+    state = _init_or_resume(cfg, dev, aux_heads)
     out_dir = cfg.train.out_dir
     os.makedirs(out_dir, exist_ok=True)
     own_logger = logger is None
@@ -257,3 +330,30 @@ def train_source(cfg: ExperimentConfig, logger: Optional[JsonlLogger] = None,
     dataset = get_dataset(cfg.data.src_dataset, cfg.data, cfg.data.split)
     return _train_loop(cfg, dataset, make_source_iteration(cfg), logger,
                        max_iterations, on_epoch_end, dev)
+
+
+def train_multitask(cfg: ExperimentConfig, depth_weight: float = 0.5,
+                    boundary_weight: float = 0.0, adapt: bool = True,
+                    logger: Optional[JsonlLogger] = None,
+                    max_iterations: Optional[int] = None,
+                    on_epoch_end: Optional[Callable] = None,
+                    device="cuda") -> MCDTrainState:
+    """Multitask training on ``device``: segmentation plus the depth head
+    (berHu, ``depth_weight``) and, when ``boundary_weight`` > 0, the
+    boundary head, with MCD over the zipped corpora (``adapt``) or on the
+    source corpus alone; otherwise as ``train_adapt``. A resumed
+    checkpoint must hold a depth head, and a boundary head exactly when
+    ``boundary_weight`` > 0. Late fusion raises before any state is
+    built."""
+    dev = resolve_device(device)
+    aux = aux_head_keys(boundary_weight)
+    get_aux_heads(cfg.model, aux)  # refuses late fusion up front
+    src = get_dataset(cfg.data.src_dataset, cfg.data, cfg.data.split)
+    if adapt:
+        dataset = ZipDataset(src, get_dataset(cfg.data.tgt_dataset, cfg.data, cfg.data.split))
+        iterate = make_multitask_iteration(cfg, depth_weight, boundary_weight)
+    else:
+        dataset = src
+        iterate = make_multitask_source_iteration(cfg, depth_weight, boundary_weight)
+    return _train_loop(cfg, dataset, iterate, logger, max_iterations, on_epoch_end, dev,
+                       aux_heads=aux)

@@ -13,9 +13,12 @@ every forward, in the order A: xs; B: xs, xt; C: xt x num_k. In step B G
 runs under ``no_grad``; in step C only G's gradients are taken
 (``torch.autograd.grad``), so neither head nor opt_f's momentum moves.
 
-``uses_one_classifier`` applies F1 in F2's place. F2 then gets a zero
-gradient rather than none, so that its optimizer still applies weight
-decay (and momentum) to it, as optax does in the JAX step.
+``uses_one_classifier`` applies F1 in F2's place. Every parameter opt_f
+covers that a step gives no gradient (F2 then, and the multitask trainer's
+auxiliary heads in step B) gets a zero gradient rather than none, so that
+its optimizer still applies weight decay (and momentum) to it, as optax
+does to its whole tree in the JAX step. Steps B and C are shared with the
+multitask trainer (``train/multitask.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional
 
 import torch
+from torch import nn
 
 from mcseg_tpu_torch.core.config import TrainConfig
 from mcseg_tpu_torch.core.device import compute_context
@@ -32,10 +36,52 @@ from mcseg_tpu_torch.train.optim import make_lr_schedule, set_lr
 from mcseg_tpu_torch.train.state import MCDTrainState
 
 
-def _zero_missing_grads(module: torch.nn.Module) -> None:
-    for p in module.parameters():
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
+def zero_missing_grads(opt: torch.optim.Optimizer) -> None:
+    """A zero gradient for every parameter of ``opt`` that has none."""
+    for group in opt.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+
+
+def step_b(state: MCDTrainState, f2: nn.Module, xs: torch.Tensor, ys: torch.Tensor,
+           xt: torch.Tensor, disc: Callable, dtype: torch.dtype) -> torch.Tensor:
+    """STEP B: maximize the discrepancy on the target wrt opt_f's heads
+    while keeping the source supervised; G runs in train mode under
+    ``no_grad``. Returns the loss, detached."""
+    f1 = state.f1
+    state.opt_f.zero_grad(set_to_none=True)
+    with compute_context(dtype, xs.device):
+        with torch.no_grad():
+            feat_s = state.g(xs)
+            feat_t = state.g(xt)
+        o1s, o2s = f1(feat_s), f2(feat_s)
+        o1t, o2t = f1(feat_t), f2(feat_t)
+    loss_b = (cross_entropy_2d(o1s, ys) + cross_entropy_2d(o2s, ys)
+              - disc(o1t, o2t))
+    loss_b.backward()
+    zero_missing_grads(state.opt_f)
+    state.opt_f.step()
+    return loss_b.detach()
+
+
+def step_c(state: MCDTrainState, f2: nn.Module, xt: torch.Tensor, disc: Callable,
+           dtype: torch.dtype, num_k: int) -> torch.Tensor:
+    """STEP C: minimize the discrepancy wrt G only, ``num_k`` times, each
+    with a fresh forward. Returns the last loss, detached."""
+    g, f1 = state.g, state.f1
+    g_params = [p for p in g.parameters() if p.requires_grad]
+    for _ in range(num_k):
+        with compute_context(dtype, xt.device):
+            feat_t = g(xt)
+            o1t, o2t = f1(feat_t), f2(feat_t)
+        loss_c = disc(o1t, o2t)
+        grads = torch.autograd.grad(loss_c, g_params)
+        for p, grad in zip(g_params, grads):
+            p.grad = grad
+        state.opt_g.step()
+        del feat_t, o1t, o2t, grads
+    return loss_c.detach()
 
 
 def make_mcd_step(cfg: TrainConfig, uses_one_classifier: bool = False,
@@ -71,49 +117,21 @@ def make_mcd_step(cfg: TrainConfig, uses_one_classifier: bool = False,
             o1, o2 = f1(feat), f2(feat)
         loss_a = cross_entropy_2d(o1, ys) + cross_entropy_2d(o2, ys)
         loss_a.backward()
-        if uses_one_classifier:
-            _zero_missing_grads(state.f2)
+        zero_missing_grads(state.opt_f)
         state.opt_g.step()
         state.opt_f.step()
         del feat, o1, o2
         if mark:
             mark("A")
-
-        # ---- STEP B: maximize the discrepancy wrt F1, F2 (G frozen) ----
-        state.opt_f.zero_grad(set_to_none=True)
-        with compute_context(dtype, xs.device):
-            with torch.no_grad():
-                feat_s = g(xs)
-                feat_t = g(xt)
-            o1s, o2s = f1(feat_s), f2(feat_s)
-            o1t, o2t = f1(feat_t), f2(feat_t)
-        loss_b = (cross_entropy_2d(o1s, ys) + cross_entropy_2d(o2s, ys)
-                  - disc(o1t, o2t))
-        loss_b.backward()
-        if uses_one_classifier:
-            _zero_missing_grads(state.f2)
-        state.opt_f.step()
-        del feat_s, feat_t, o1s, o2s, o1t, o2t
+        loss_b = step_b(state, f2, xs, ys, xt, disc, dtype)
         if mark:
             mark("B")
-
-        # ---- STEP C: minimize the discrepancy wrt G (F frozen), x num_k ----
-        g_params = [p for p in g.parameters() if p.requires_grad]
-        for _ in range(num_k):
-            with compute_context(dtype, xs.device):
-                feat_t = g(xt)
-                o1t, o2t = f1(feat_t), f2(feat_t)
-            loss_c = disc(o1t, o2t)
-            grads = torch.autograd.grad(loss_c, g_params)
-            for p, grad in zip(g_params, grads):
-                p.grad = grad
-            state.opt_g.step()
-            del feat_t, o1t, o2t, grads
+        loss_c = step_c(state, f2, xt, disc, dtype, num_k)
         if mark:
             mark("C")
 
         state.step += 1
-        return {"loss_source": loss_a.detach(), "loss_b": loss_b.detach(),
-                "loss_dis": loss_c.detach(), "lr": lr}
+        return {"loss_source": loss_a.detach(), "loss_b": loss_b,
+                "loss_dis": loss_c, "lr": lr}
 
     return step

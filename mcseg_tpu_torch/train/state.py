@@ -1,15 +1,19 @@
-"""MCD train state: the three modules, their two optimizers, the iteration
-counter and a random generator.
+"""Train state: the modules, their two optimizers, the iteration counter and
+a random generator.
 
-The port of the JAX package's ``train/state.py``. JAX carries one explicit
+The port of the JAX package's ``train/state.py`` (and of
+``train/multitask.py:init_multitask_state``). JAX carries one explicit
 pytree through a jitted step; here the state is a mutable holder that the
 eager step updates in place:
 
   g, f1, f2   the trunk and both heads on the device (float32 parameters
               and BatchNorm statistics; float64 under a float64 oracle),
               NCHW modules in channels_last memory, in train mode
+  d, b        the multitask trainer's depth head and optional boundary
+              head (None otherwise)
   opt_g       optimizer over G
-  opt_f       optimizer over F1 and F2 together
+  opt_f       optimizer over F1, F2 and the auxiliary heads, in checkpoint
+              order (F1, F2, D, B)
   step        per-iteration counter driving the lr schedule
   gen         CPU ``torch.Generator`` that made the initial weights
 """
@@ -17,14 +21,15 @@ eager step updates in place:
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
 
 from mcseg_tpu_torch.core.config import ModelConfig, TrainConfig
 from mcseg_tpu_torch.core.device import compute_dtype, resolve_device
-from mcseg_tpu_torch.models.factory import Params, get_models, init_models
+from mcseg_tpu_torch.models.factory import (
+    Params, get_aux_heads, get_models, init_aux_heads, init_models)
 from mcseg_tpu_torch.train.optim import get_optimizer
 
 
@@ -37,11 +42,18 @@ class MCDTrainState:
     opt_f: torch.optim.Optimizer
     step: int
     gen: torch.Generator
+    d: Optional[nn.Module] = None
+    b: Optional[nn.Module] = None
+
+    def modules(self) -> Dict[str, nn.Module]:
+        """``{"G", "F1", "F2"[, "D"][, "B"]}`` in checkpoint order."""
+        mods = {"G": self.g, "F1": self.f1, "F2": self.f2, "D": self.d, "B": self.b}
+        return {k: m for k, m in mods.items() if m is not None}
 
     def params(self) -> Params:
-        """``{"G", "F1", "F2"}`` state dicts, detached copies on the CPU."""
+        """The modules' state dicts, detached copies on the CPU."""
         return {name: {k: v.detach().cpu().clone() for k, v in m.state_dict().items()}
-                for name, m in (("G", self.g), ("F1", self.f1), ("F2", self.f2))}
+                for name, m in self.modules().items()}
 
 
 def param_dtype(model_cfg: ModelConfig) -> torch.dtype:
@@ -49,20 +61,27 @@ def param_dtype(model_cfg: ModelConfig) -> torch.dtype:
 
 
 def create_train_state(model_cfg: ModelConfig, train_cfg: TrainConfig, seed: int = 0,
-                       device="cuda", params: Optional[Params] = None) -> MCDTrainState:
-    """Seeded parameters for (G, F1, F2) (``models.factory.init_models``
-    with a generator seeded by ``seed``), or ``params`` when given, on
-    ``device``, with fresh optimizers from ``train_cfg``."""
+                       device="cuda", params: Optional[Params] = None,
+                       aux_heads: Sequence[str] = ()) -> MCDTrainState:
+    """Seeded parameters for (G, F1, F2) and the auxiliary heads
+    ``aux_heads`` ("D", "B"; ``models.factory.init_models`` then
+    ``init_aux_heads`` with one generator seeded by ``seed``), or
+    ``params`` when given, on ``device``, with fresh optimizers from
+    ``train_cfg``."""
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
+    aux = get_aux_heads(model_cfg, aux_heads)
     if params is None:
         params = init_models(model_cfg, gen)
-    mods = [m.to(param_dtype(model_cfg)) for m in get_models(model_cfg)]
-    for m, name in zip(mods, ("G", "F1", "F2")):
-        m.load_state_dict(params[name])
-    g, f1, f2 = (m.to(dev).to(memory_format=torch.channels_last).train() for m in mods)
+        params.update(init_aux_heads(model_cfg, aux_heads, gen))
+    mods = dict(zip(("G", "F1", "F2"), get_models(model_cfg)), **aux)
+    for name, m in mods.items():
+        m.to(param_dtype(model_cfg)).load_state_dict(params[name])
+        m.to(dev).to(memory_format=torch.channels_last).train()
     opt = dict(opt=train_cfg.opt, lr=train_cfg.lr, momentum=train_cfg.momentum,
                weight_decay=train_cfg.weight_decay)
-    opt_g = get_optimizer(g.parameters(), **opt)
-    opt_f = get_optimizer(list(f1.parameters()) + list(f2.parameters()), **opt)
-    return MCDTrainState(g=g, f1=f1, f2=f2, opt_g=opt_g, opt_f=opt_f, step=0, gen=gen)
+    opt_g = get_optimizer(mods["G"].parameters(), **opt)
+    opt_f = get_optimizer([p for k, m in mods.items() if k != "G" for p in m.parameters()],
+                          **opt)
+    return MCDTrainState(g=mods["G"], f1=mods["F1"], f2=mods["F2"], opt_g=opt_g,
+                         opt_f=opt_f, step=0, gen=gen, d=mods.get("D"), b=mods.get("B"))

@@ -1,14 +1,18 @@
 """Checkpoints: a torch payload plus the JAX package's config sidecar.
 
-    <prefix>.pt           {step, G, F1, F2 (state dicts), opt_g, opt_f
-                           (optimizer state dicts), gen (generator state)}
+    <prefix>.pt           {step, G, F1, F2 (state dicts), D and B (the
+                           multitask trainer's heads, when the state has
+                           them), opt_g, opt_f (optimizer state dicts),
+                           gen (generator state)}
     <prefix>.config.json  the ExperimentConfig dict, in the layout the JAX
                           package writes beside its msgpack checkpoints
 
 As in the JAX package (``utils/checkpoint.py``), the model is rebuilt from
 the config stored beside the weights, and both files are published
 atomically (a temporary file, then ``os.replace``), so a prefix always
-names a complete checkpoint. ``prune_epoch_checkpoints`` keeps the newest
+names a complete checkpoint. A payload with a "D" is a multitask
+checkpoint, restored into a state with its auxiliary heads, as the JAX
+package detects one. ``prune_epoch_checkpoints`` keeps the newest
 ``keep_checkpoints`` epoch checkpoints, as the JAX loops do. Conversion to
 and from the JAX msgpack payload comes in a later slice.
 """
@@ -24,7 +28,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from mcseg_tpu_torch.core.config import ExperimentConfig
-from mcseg_tpu_torch.models.factory import Params
+from mcseg_tpu_torch.models.factory import AUX_HEADS, Params
 from mcseg_tpu_torch.train.state import MCDTrainState, create_train_state
 
 
@@ -83,24 +87,29 @@ def load_config(prefix: str) -> ExperimentConfig:
         return ExperimentConfig.from_dict(json.load(f))
 
 
+def _params(payload) -> Params:
+    return {k: payload[k] for k in ("G", "F1", "F2", *AUX_HEADS) if k in payload}
+
+
 def load_params(prefix: str) -> Tuple[Params, ExperimentConfig]:
-    """(``{"G", "F1", "F2"}`` CPU state dicts, config) — what
-    ``eval.tester.evaluate`` scores."""
+    """(``{"G", "F1", "F2"[, "D"][, "B"]}`` CPU state dicts, config) —
+    what ``eval.tester.evaluate`` scores."""
     payload = torch.load(prefix + ".pt", map_location="cpu", weights_only=True)
-    return {k: payload[k] for k in ("G", "F1", "F2")}, load_config(prefix)
+    return _params(payload), load_config(prefix)
 
 
 def load_checkpoint(prefix: str, device="cuda",
                     config: Optional[ExperimentConfig] = None
                     ) -> Tuple[MCDTrainState, ExperimentConfig]:
-    """Rebuild the train state (weights, both optimizers, step, generator)
-    on ``device`` from the checkpoint's own config unless ``config`` is
-    given."""
+    """Rebuild the train state (weights and auxiliary heads, both
+    optimizers, step, generator) on ``device`` from the checkpoint's own
+    config unless ``config`` is given."""
     config = config or load_config(prefix)
     payload = torch.load(prefix + ".pt", map_location="cpu", weights_only=True)
-    params = {k: payload[k] for k in ("G", "F1", "F2")}
+    params = _params(payload)
     state = create_train_state(config.model, config.train, config.train.seed,
-                               device, params=params)
+                               device, params=params,
+                               aux_heads=[k for k in AUX_HEADS if k in params])
     state.opt_g.load_state_dict(payload["opt_g"])
     state.opt_f.load_state_dict(payload["opt_f"])
     state.step = int(payload["step"])

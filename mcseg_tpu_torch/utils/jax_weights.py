@@ -1,9 +1,10 @@
 """Carry JAX/flax weights and optimizer state to and from the port.
 
 ``params_from_jax(params, batch_stats)`` takes the JAX trees as nested
-dicts of numpy arrays (``{"G": ..., "F1": ..., "F2": ...}`` each) and
-returns ``{"G": state_dict, "F1": ..., "F2": ...}`` keyed by the port's
-module names, which follow the flax tree:
+dicts of numpy arrays (``{"G": ..., "F1": ..., "F2": ...}`` each, plus the
+multitask trainer's "D" and "B" heads where present) and returns
+``{"G": state_dict, "F1": ..., "F2": ...[, "D"][, "B"]}`` keyed by the
+port's module names, which follow the flax tree:
 
   conv  ``kernel`` HWIO -> ``weight`` OIHW;  ``bias`` -> ``bias``
   BN    ``scale``/``bias`` -> ``weight``/``bias``;
@@ -76,10 +77,13 @@ def _module_state(params: Mapping, stats: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def params_from_jax(params: Mapping, batch_stats: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
-    """JAX ``{'G','F1','F2'}`` params + batch_stats -> port state dicts."""
+    """JAX ``{'G','F1','F2'[,'D'][,'B']}`` params + batch_stats -> port
+    state dicts."""
     out = {}
-    for name in ("G", "F1", "F2"):
+    for name in ("G", "F1", "F2", "D", "B"):
         if name not in params:
+            if name in ("D", "B"):  # only multitask checkpoints have them
+                continue
             raise KeyError(f"JAX params have no {name!r} subtree")
         out[name] = _module_state(params[name], batch_stats.get(name, {}) or {})
     extra = (set(params) | set(batch_stats)) - set(out)
@@ -96,7 +100,7 @@ def _nest(tree: Dict[str, Any], path: str, value: np.ndarray) -> None:
 
 
 def params_to_jax(params: Mapping[str, Mapping[str, torch.Tensor]]):
-    """Port ``{"G", "F1", "F2"}`` state dicts -> JAX-layout (params,
+    """Port ``{"G", "F1", "F2"[, "D"][, "B"]}`` state dicts -> JAX-layout (params,
     batch_stats) trees of numpy arrays, the inverse of ``params_from_jax``
     (``num_batches_tracked``, which flax does not keep, is dropped)."""
     out_p: Dict[str, Any] = {}
@@ -127,8 +131,8 @@ def opt_state_from_jax(optimizer: torch.optim.Optimizer,
     """Set each parameter's ``momentum_buffer`` in ``optimizer`` (an SGD
     over the parameters of ``modules``) from the optax ``trace`` tree of
     the same names, e.g. ``({"G": g}, {"G": trace_g})`` or
-    ``({"F1": f1, "F2": f2}, trace_f)``. Raises unless every parameter of
-    the modules gets a buffer."""
+    ``({"F1": f1, "F2": f2, "D": d}, trace_f)``. Raises unless every
+    parameter of the modules gets a buffer."""
     for name, module in modules.items():
         bufs, _ = _param_tensors(trace[name])
         named = dict(module.named_parameters())

@@ -1,10 +1,12 @@
 """Shared helpers of the JAX-vs-port parity tests (tests/test_torch_*.py):
-seeded JAX parameters with non-trivial BatchNorm, and a JAX float64 block."""
+seeded JAX parameters with non-trivial BatchNorm, a JAX float64 block, and
+the train preprocess's random draws as JAX makes them."""
 
 import contextlib
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 
 from mcseg_tpu.models.factory import init_models as jax_init_models
@@ -89,3 +91,21 @@ def _score_biases(tree):
         return [(tree["score"], tree["score"]["bias"])]
     return [pair for sub in tree.values() if isinstance(sub, dict)
             for pair in _score_biases(sub)]
+
+
+def jax_train_draws(key, b, pre, target, random_crop, random_flip):
+    """The crop offsets and flips ``make_train_preprocess`` of the JAX
+    package draws from ``key`` (``ops/preprocess.py:288-289, 313-315,
+    328``), as int32 torch tensors for the port's preprocess."""
+    import torch
+
+    if random_crop and pre != target:
+        k_top, k_left, k_flip = jax.random.split(key, 3)
+        tops = jax.random.randint(k_top, (b,), 0, pre[0] - target[0] + 1)
+        lefts = jax.random.randint(k_left, (b,), 0, pre[1] - target[1] + 1)
+    else:
+        k_flip = key
+        tops = lefts = jnp.zeros((b,), jnp.int32)
+    flip = (jax.random.bernoulli(k_flip, 0.5, (b,)) if random_flip
+            else jnp.zeros((b,), bool))
+    return tuple(torch.from_numpy(np.asarray(a).astype(np.int32)) for a in (tops, lefts, flip))

@@ -13,25 +13,37 @@ iteration per epoch). ``main(argv, device="cpu")`` of each command; the
 run directory's files, ``--keep_checkpoints`` pruning, the epoch-eval
 hook, the tester's F1/F2 choice, and a resumed run landing bit-equal on an
 uninterrupted one.
+
+The multitask command (``cli/multitask_train.py``): its flags give the
+JAX command's config and weights; MCD with a boundary head and
+``--source_only`` end to end, the checkpoint round trip with the "D" and
+"B" heads, the test command's depth and boundary lines, a resumed run, the
+two resume refusals with the JAX trainer's messages, and the refusal of
+late fusion before any state is built.
 """
 
 import dataclasses
 import json
 import os
+import types
 
 import numpy as np
 import pytest
 import torch
 
+import mcseg_tpu.cli.multitask_train as jax_multitask_train
+import mcseg_tpu.train.loops as jax_loops
+import mcseg_tpu.train.multitask as jax_multitask
 from mcseg_tpu.cli import argparse_compat as jax_cli
 from mcseg_tpu.core.config import ExperimentConfig as JaxExperimentConfig
 from mcseg_tpu.train.loops import _check_resume_config as jax_check_resume_config
-from mcseg_tpu_torch.cli import _epoch_eval, adapt_test, adapt_train, source_test, source_train
+from mcseg_tpu_torch.cli import (
+    _epoch_eval, adapt_test, adapt_train, multitask_train, source_test, source_train)
 from mcseg_tpu_torch.cli import argparse_compat as cli
 from mcseg_tpu_torch.core.config import ExperimentConfig
 from mcseg_tpu_torch.eval.tester import evaluate
 from mcseg_tpu_torch.train import loops
-from mcseg_tpu_torch.utils.checkpoint import load_params
+from mcseg_tpu_torch.utils.checkpoint import load_checkpoint, load_params
 
 COMMAND_LINES = {
     "adapt_suncg_nyu_rgbhha": (True, "suncg nyu --input_ch 6 --num_k 4"),
@@ -195,3 +207,141 @@ def test_epoch_eval_hook_without_val_split(capsys, monkeypatch):
     assert _epoch_eval.make_epoch_eval_hook(ExperimentConfig(), 1, device="cpu") is None
     assert "epoch-end eval disabled" in capsys.readouterr().out
     assert _epoch_eval.make_epoch_eval_hook(ExperimentConfig(), 0, device="cpu") is None
+
+
+MULTITASK_LINES = {
+    # the JAX package's documented multitask command (docs/BASELINE_RUNS.md)
+    "rgb_depth_mcd": "suncg nyu --input_ch 3 --data_root /data --depth_weight 0.5",
+    "boundary_source_only": "synthetic synthetic_shifted --boundary_weight 1.0 --source_only "
+                            "--net drn_d_22 --depth_weight 0.25",
+}
+
+
+@pytest.mark.parametrize("name", sorted(MULTITASK_LINES))
+def test_multitask_command_line_gives_the_jax_run(name, tmp_path, monkeypatch):
+    """Both ``main``s on one command line, each trainer replaced by a
+    recorder: the same config dict and the same multitask arguments."""
+    argv = MULTITASK_LINES[name].split() + ["--out_dir", str(tmp_path / "run")]
+    seen = {}
+
+    def recorder(side):
+        def train(cfg, **kw):
+            seen[side] = (cfg.to_dict(), {k: kw[k] for k in
+                                          ("depth_weight", "boundary_weight", "adapt")})
+        return train
+
+    monkeypatch.setattr(jax_multitask_train, "train_multitask", recorder("jax"))
+    jax_multitask_train.main(argv)
+    monkeypatch.setattr(multitask_train, "train_multitask", recorder("port"))
+    multitask_train.main(argv, device="cpu")
+    assert seen["port"] == seen["jax"]
+    assert seen["port"][1]["adapt"] == ("--source_only" not in argv)
+
+
+def _multitask(out_dir, epochs=2, *extra):
+    return multitask_train.main(["synthetic", "synthetic_shifted", "--num_k", "2",
+                                 *_argv(out_dir, epochs, *extra)], device="cpu")
+
+
+def _train_log(run):
+    with open(run / "train_log.jsonl") as f:
+        return [json.loads(ln) for ln in f]
+
+
+def test_multitask_mcd_with_boundary_end_to_end(tmp_path, capsys):
+    run = tmp_path / "mt"
+    state = _multitask(run, 2, "--boundary_weight", "1.0", "--eval_every_epochs", "2")
+    assert state.step == 2 and state.d is not None and state.b is not None
+    lines = _train_log(run)
+    steps = [r for r in lines if "loss_source" in r]
+    assert [r["step"] for r in steps] == [0, 1]
+    for r in steps:
+        assert {"loss_seg", "loss_depth", "loss_b", "loss_dis", "lr", "loss_boundary"} <= set(r)
+        assert all(np.isfinite(r[k]) for k in ("loss_source", "loss_depth", "loss_boundary"))
+    assert [r["epoch"] for r in lines if "val_miou" in r] == [2]
+    # the checkpoint round trip keeps both heads and their optimizer state
+    restored, cfg = load_checkpoint(str(run / "last"), "cpu")
+    assert restored.step == 2 and cfg.model.method == "MCD"
+    saved, back = state.params(), restored.params()
+    assert sorted(back) == ["B", "D", "F1", "F2", "G"]
+    for name in saved:
+        for k in saved[name]:
+            assert torch.equal(saved[name][k], back[name][k]), (name, k)
+    opt, opt_back = state.opt_f.state_dict(), restored.opt_f.state_dict()
+    assert len(opt_back["state"]) == len(opt["state"]) == 8  # F1, F2, D, B: weight + bias
+    for i, st in opt["state"].items():
+        assert torch.equal(st["momentum_buffer"], opt_back["state"][i]["momentum_buffer"])
+    params, _ = load_params(str(run / "last"))
+    assert sorted(params) == ["B", "D", "F1", "F2", "G"]
+    capsys.readouterr()
+    miou = adapt_test.main([str(run / "last")], device="cpu")
+    out = capsys.readouterr().out
+    assert np.isfinite(miou)
+    for line in ("depth: rmse=", "boundary (tol=2px): precision=", "boundary (strict):  precision="):
+        assert line in out, out[-500:]
+
+
+def test_multitask_source_only_end_to_end(tmp_path, capsys):
+    run = tmp_path / "mt_src"
+    state = _multitask(run, 1, "--source_only", "--input_ch", "3")
+    assert state.step == 1 and state.b is None
+    (r,) = _train_log(run)
+    assert set(r) == {"step", "loss", "loss_seg", "loss_depth", "lr", "img_per_sec"}
+    params, cfg = load_params(str(run / "last"))
+    assert sorted(params) == ["D", "F1", "F2", "G"] and cfg.model.method == "source"
+    capsys.readouterr()
+    source_test.main([str(run / "last")], device="cpu")
+    out = capsys.readouterr().out
+    assert "depth: rmse=" in out and "boundary" not in out
+
+
+def test_multitask_resume_repeats_the_uninterrupted_run(tmp_path):
+    full = _multitask(tmp_path / "full", 2, "--boundary_weight", "1.0")
+    _multitask(tmp_path / "cut", 1, "--boundary_weight", "1.0")
+    resumed = _multitask(tmp_path / "cut", 2, "--boundary_weight", "1.0",
+                         "--resume", str(tmp_path / "cut" / "last"))
+    assert resumed.step == full.step == 2
+    for name, sd in full.params().items():
+        for k, v in sd.items():
+            assert torch.equal(v, resumed.params()[name][k]), (name, k)
+
+
+def _jax_resume_refusal(monkeypatch, tmp_path, resume, ckpt_heads, boundary_weight):
+    """The JAX trainer's refusal of resuming ``resume``, whose checkpoint
+    holds the subtrees ``ckpt_heads``: its checkpoint reader and state
+    initializer are replaced, so nothing is compiled."""
+    cfg = JaxExperimentConfig.from_dict(ExperimentConfig().to_dict())
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, resume=resume, out_dir=str(tmp_path / "jax_run")))
+    fake = types.SimpleNamespace(params=dict.fromkeys(ckpt_heads))
+    monkeypatch.setattr(jax_multitask, "init_multitask_state", lambda *a, **k: (None,) * 4)
+    monkeypatch.setattr(jax_loops, "load_checkpoint", lambda path: (fake, cfg))
+    with pytest.raises(ValueError) as e:
+        jax_loops.train_multitask(cfg, mesh=object(), logger=object(),
+                                  boundary_weight=boundary_weight)
+    monkeypatch.undo()
+    return str(e.value)
+
+
+def test_multitask_resume_refusals_carry_the_jax_messages(tmp_path, monkeypatch):
+    plain = tmp_path / "adapt"
+    _adapt(plain, 1)
+    mt = tmp_path / "mt"
+    _multitask(mt, 1, "--boundary_weight", "1.0")
+    cases = [(str(plain / "last"), ("G", "F1", "F2"), ["--input_ch", "4"], 0.0,
+              "is not a multitask checkpoint"),
+             (str(mt / "last"), ("G", "F1", "F2", "D", "B"), [], 0.0,
+              "boundary-head mismatch — checkpoint has a 'B' subtree but --boundary_weight is unset")]
+    for resume, heads, extra, bw, needle in cases:
+        want = _jax_resume_refusal(monkeypatch, tmp_path, resume, heads, bw)
+        with pytest.raises(ValueError) as ours:
+            _multitask(tmp_path / "again", 2, "--resume", resume, *extra)
+        assert str(ours.value) == want and needle in want
+
+
+def test_multitask_late_fusion_refused_before_any_state(tmp_path, monkeypatch):
+    built = []
+    monkeypatch.setattr(loops, "create_train_state", lambda *a, **k: built.append(a))
+    with pytest.raises(ValueError, match="--fusion late"):
+        _multitask(tmp_path / "late", 1, "--fusion", "late", "--input_ch", "6")
+    assert not built

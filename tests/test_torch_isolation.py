@@ -1,7 +1,7 @@
 """The port stands alone: importing every module of ``mcseg_tpu_torch``
 (the command-line entry points and their console-script shims included)
 loads neither ``jax`` nor ``mcseg_tpu``, and its entry points (serving,
-evaluation, training, the four commands) refuse to run on a CUDA device
+evaluation, the three trainers, the five commands) refuse to run on a CUDA device
 that is not there (no silent CPU fallback).
 
 Runs in a fresh interpreter, since this test process has JAX loaded."""
@@ -27,14 +27,15 @@ assert not leaked, leaked
 assert len(mods) >= 35, mods
 assert {"mcseg_tpu_torch._scripts", "mcseg_tpu_torch.cli.adapt_train",
         "mcseg_tpu_torch.cli.adapt_test", "mcseg_tpu_torch.cli.source_train",
-        "mcseg_tpu_torch.cli.source_test"} <= set(mods), mods
+        "mcseg_tpu_torch.cli.source_test", "mcseg_tpu_torch.cli.multitask_train",
+        "mcseg_tpu_torch.train.multitask", "mcseg_tpu_torch.eval.depth_metrics"} <= set(mods), mods
 
 from mcseg_tpu_torch.core.config import DataConfig, ExperimentConfig, ModelConfig
 from mcseg_tpu_torch.eval.serving import make_serve_fn
 from mcseg_tpu_torch.eval.tester import evaluate
 from mcseg_tpu_torch.models.factory import init_models
-from mcseg_tpu_torch.cli import adapt_test, adapt_train, source_test, source_train
-from mcseg_tpu_torch.train.loops import train_adapt, train_source
+from mcseg_tpu_torch.cli import adapt_test, adapt_train, multitask_train, source_test, source_train
+from mcseg_tpu_torch.train.loops import train_adapt, train_multitask, train_source
 from mcseg_tpu_torch.train.state import create_train_state
 
 cfg = ExperimentConfig(model=ModelConfig(net="drn_d_14", input_ch=6, n_class=8),
@@ -47,11 +48,16 @@ if not torch.cuda.is_available():
                  lambda: evaluate(params, cfg, max_batches=1),
                  lambda: train_adapt(cfg),
                  lambda: train_source(cfg),
+                 lambda: train_multitask(cfg),
+                 lambda: train_multitask(cfg, boundary_weight=1.0, adapt=False),
+                 lambda: make_serve_fn(cfg, params, with_depth=True),
                  lambda: create_train_state(cfg.model, cfg.train),
                  lambda: adapt_train.main(["synthetic", "synthetic_shifted",
                                            "--out_dir", "/nonexistent/never_written"]),
                  lambda: source_train.main(["synthetic",
                                             "--out_dir", "/nonexistent/never_written"]),
+                 lambda: multitask_train.main(["synthetic", "synthetic_shifted",
+                                               "--out_dir", "/nonexistent/never_written"]),
                  lambda: adapt_test.main(["/nonexistent/never_read"]),
                  lambda: source_test.main(["/nonexistent/never_read"])):
         try:
@@ -80,7 +86,8 @@ def test_torch_console_scripts_resolve():
     block = re.search(r"\[project\.scripts\]\n((?:[^\[\n][^\n]*\n)+)", body).group(1)
     entries = dict(re.findall(r'^(mcseg-torch-[\w-]+) = "([\w.]+:\w+)"', block, re.M))
     assert sorted(entries) == ["mcseg-torch-adapt-test", "mcseg-torch-adapt-train",
-                               "mcseg-torch-source-test", "mcseg-torch-source-train"]
+                               "mcseg-torch-multitask-train", "mcseg-torch-source-test",
+                               "mcseg-torch-source-train"]
     for script, target in entries.items():
         module, attr = target.split(":")
         assert module == "mcseg_tpu_torch._scripts", script

@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import jax_train_draws as _jax_draws
 from mcseg_tpu.core.config import DataConfig as JaxDataConfig
 from mcseg_tpu.ops.preprocess import make_train_preprocess as jax_make_train_preprocess
 from mcseg_tpu_torch.core.config import DataConfig
@@ -42,20 +43,6 @@ from mcseg_tpu_torch.ops.preprocess import (
 RGB_ATOL = 1e-5
 HHA_ATOL = 2e-3
 BF16_ATOL = 0.08
-
-
-def _jax_draws(key, b, pre, target, random_crop, random_flip):
-    """The draws of ``make_train_preprocess`` for ``key``, as it makes them."""
-    if random_crop and pre != target:
-        k_top, k_left, k_flip = jax.random.split(key, 3)
-        tops = jax.random.randint(k_top, (b,), 0, pre[0] - target[0] + 1)
-        lefts = jax.random.randint(k_left, (b,), 0, pre[1] - target[1] + 1)
-    else:
-        k_flip = key
-        tops = lefts = jnp.zeros((b,), jnp.int32)
-    flip = (jax.random.bernoulli(k_flip, 0.5, (b,)) if random_flip
-            else jnp.zeros((b,), bool))
-    return tuple(torch.from_numpy(np.asarray(a).astype(np.int32)) for a in (tops, lefts, flip))
 
 
 def _raw(decode_wh, n, seed=0):
