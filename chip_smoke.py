@@ -15,8 +15,9 @@ at the same width through its iteration, ``train_multitask``, the tester
 and depth serving, then the reference commands (``cli.adapt_train``,
 ``adapt_test``, ``source_train``, ``source_test``, ``multitask_train``)
 through their ``main``, then one MCD configuration of every other trunk,
-fusion mode and channel stack the flags accept, and checks that each path
-launched the kernels. Every phase prints one JSON line
+fusion mode and channel stack the flags accept (FCN8s on VGG16 and PSPNet
+among them, each also scored by one ``evaluate`` batch), and checks that
+each path launched the kernels. Every phase prints one JSON line
 and any failure raises (exit code != 0), a ptxas spill included. Kernel
 times are L2-cold, as the serving path finds its inputs: each timing
 rotates over input sets that together move 3x the 50 MB L2, and a reading
@@ -968,13 +969,16 @@ def phase_cli(smi_line):
     return sum(r.get("launches", 0) for r in report.values())
 
 
-FAMILIES = (  # one MCD configuration per --net, --fusion or --input_ch the slice adds
+FAMILIES = (  # one MCD configuration per --net, --fusion or --input_ch the slices add
     {"net": "drn_d_54"}, {"net": "drn_d_105"}, {"net": "drn_c_26"}, {"net": "drn_c_42"},
     {"net": "drn_d_38", "fusion": "late"}, {"net": "drn_d_38", "input_ch": 4},
-    {"net": "drn_d_38", "input_ch": 1},
+    {"net": "drn_d_38", "input_ch": 1}, {"net": "fcn8s_vgg16"}, {"net": "psp"},
 )
 FAMILIES_CARD_VS_CPU = ({"net": "drn_d_54"}, {"net": "drn_c_26"},
-                        {"net": "drn_d_38", "fusion": "late"})
+                        {"net": "drn_d_38", "fusion": "late"}, {"net": "fcn8s_vgg16"},
+                        {"net": "psp"})
+# one evaluate batch and a stage breakdown each
+FAMILIES_IN_DEPTH = ({"net": "fcn8s_vgg16"}, {"net": "psp"})
 FAMILY_TIMED = 2  # iterations after one warm-up, which also counts the FLOPs
 
 
@@ -998,9 +1002,10 @@ def _family_run(family, smi_line):
     iteration_tflop = counter.get_total_flops() / 1e12
     # FlopCounterMode attributes backward ops to modules by hooks that
     # interleave across two trunks, so a trunk's own count is read only
-    # where G is one DRN
-    counts = counter.get_flop_counts()
-    trunk_tflop = sum(counts["DRN"].values()) / 1e12 if "DRN" in counts else None
+    # where G is one trunk
+    counts, trunk = counter.get_flop_counts(), type(state.g).__name__
+    trunk_tflop = (sum(counts[trunk].values()) / 1e12
+                   if trunk in counts and cfg.model.fusion != "late" else None)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fused_normalize_stack.launches = 0  # count only the timed iterations
@@ -1024,6 +1029,13 @@ def _family_run(family, smi_line):
         raise AssertionError(f"{family}: not updated by training: {unchanged[:10]}")
     ms = statistics.median(times)
     n_params = sum(p.numel() for m in (state.g, state.f1, state.f2) for p in m.parameters())
+    detail = {}
+    if family in FAMILIES_IN_DEPTH:
+        detail["breakdown_ms"] = _train_breakdown(iterate, state, src, tgt)
+        detail["evaluate"] = _family_evaluate(cfg, state)
+        if family["net"] == "fcn8s_vgg16":  # its head upsamples in float32, as JAX's
+            detail["convt_8x_one_head_fwd_bwd_ms"] = {
+                "float32": _convt_8x_ms(torch.float32), "bfloat16": _convt_8x_ms(torch.bfloat16)}
     del state, before
     torch.cuda.empty_cache()
     return {"family": {"net": cfg.model.net, "input_ch": cfg.model.input_ch,
@@ -1034,18 +1046,60 @@ def _family_run(family, smi_line):
             "images_per_s": 2 * B / ms * 1e3, "peak_mem_gb": peak_gb,
             "iteration_tflop": iteration_tflop,
             "iteration_share_of_bf16_peak": iteration_tflop / ms * 1e3 / H100_BF16_FLOPS * 1e12,
-            "trunk_tflop_per_iteration": trunk_tflop, "metrics": metrics}
+            "trunk_tflop_per_iteration": trunk_tflop, "metrics": metrics, **detail}
 
 
-def _family_step(dtype, device, params, inputs, cfg):
+def _convt_8x_ms(dtype):
+    """Forward plus backward of one head's 8x ``convt`` upsample, [B, 40,
+    H/8, W/8] -> [B, 40, H, W] in ``dtype``, by CUDA events."""
+    import torch
+
+    from mcseg_tpu_torch.ops.upsample import upsample_bilinear_convt
+
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    score = torch.randn((B, 40, H // 8, W // 8), generator=gen, device=DEVICE,
+                        dtype=dtype).requires_grad_(True)
+    cot = torch.randn((B, 40, H, W), generator=gen, device=DEVICE, dtype=dtype)
+
+    def fwd_bwd():
+        up = upsample_bilinear_convt(score, 8)
+        up.backward(cot)
+        return up
+
+    return gpu_time_ms(fwd_bwd, runs=5, per_run=2)
+
+
+def _family_evaluate(cfg, state):
+    """``evaluate`` of one val batch from the trained ``state`` (G in eval
+    mode, F1 and F2 averaged), with the launch count reset just before it
+    and read just after: one launch, a finite mIoU."""
+    import numpy as np
+
+    from mcseg_tpu_torch.eval.tester import evaluate
+    from mcseg_tpu_torch.ops.normalize import fused_normalize_stack
+
+    fused_normalize_stack.launches = 0
+    t0 = time.perf_counter()
+    miou, hist, _ = evaluate(state.params(), cfg, max_batches=1, print_table=False,
+                             device=DEVICE)
+    secs = time.perf_counter() - t0
+    if fused_normalize_stack.launches != 1 or not np.isfinite(miou) or hist.sum() == 0:
+        raise AssertionError(f"{cfg.model.net}: evaluate of the trained state: mIoU {miou}, "
+                             f"{fused_normalize_stack.launches} launches")
+    return {"miou": miou, "launches": 1, "seconds": secs, "hist_pixels": int(hist.sum())}
+
+
+def _family_step(dtype, device, params, inputs, cfg, masks=None):
     """One MCD step (A / B / C x num_k) of ``cfg``'s model from ``params``
     on ``inputs`` (preprocessed xs, ys, xt on the CPU; xs, ys, ds, xt for
     the multitask step, whose ``params`` hold the auxiliary heads), on
-    ``device`` in ``dtype``: (metrics, weights before, weights after), the
-    weights on the CPU."""
+    ``device`` in ``dtype``, G's dropout fed ``masks`` in call order when
+    given: (metrics, weights before, weights after), the weights on the
+    CPU."""
     import torch
 
     from mcseg_tpu_torch.core.device import compute_dtype
+    from mcseg_tpu_torch.models.fcn_vgg import GivenMasks
     from mcseg_tpu_torch.train.mcd import make_mcd_step
     from mcseg_tpu_torch.train.multitask import make_multitask_mcd_step
     from mcseg_tpu_torch.train.state import create_train_state
@@ -1054,6 +1108,8 @@ def _family_step(dtype, device, params, inputs, cfg):
     dt = compute_dtype(dtype)
     aux = [k for k in ("D", "B") if k in params]
     state = create_train_state(cfg.model, cfg.train, 0, device, params=params, aux_heads=aux)
+    if masks is not None:
+        state.install_masks(GivenMasks(masks))
     before = _snapshot(state)
     xs, ys, xt = inputs[0].to(device, dt), inputs[1].to(device), inputs[-1].to(device, dt)
     if aux:
@@ -1091,9 +1147,27 @@ def _cpu_inputs(cfg, with_depth=False):
     return (xs.permute(0, 3, 1, 2), ys, *ds, xt.permute(0, 3, 1, 2))
 
 
+def _dropout_masks(cfg, b, hw):
+    """Keep-masks for every dropout of one MCD step of ``cfg``'s model at
+    batch ``b`` and ``hw``, drawn on the CPU from a seeded generator, or
+    None for a trunk without dropout: A, B source, B target and C x num_k
+    each draw one mask per ``Dropout`` (VGG's drop6 and drop7, on the /32
+    map rounded up)."""
+    import torch
+
+    from mcseg_tpu_torch.models.factory import FCN_NETS
+
+    if cfg.model.net not in FCN_NETS:
+        return None
+    gen = torch.Generator().manual_seed(2)
+    shape = (b, 4096, -(-hw[0] // 32), -(-hw[1] // 32))
+    return [torch.rand(shape, generator=gen) < 0.5 for _ in range(2 * (3 + cfg.train.num_k))]
+
+
 def _family_card_vs_cpu(family, params=None):
     """One MCD step at batch 2, 48x64 on the card and on the CPU from the
-    same weights and the same preprocessed inputs (made once on the CPU),
+    same weights, the same preprocessed inputs (made once on the CPU) and,
+    for a trunk with dropout, the same masks (drawn once on the CPU),
     in float64, held to CARD_VS_CPU_BOUNDS, and in float32, reported
     beside the CPU's own float32 error from float64 and beside a float64
     CPU step whose inputs are perturbed by 1e-7 relative noise. The step
@@ -1112,14 +1186,15 @@ def _family_card_vs_cpu(family, params=None):
     if params is None:
         params = init_models(cfg.model, torch.Generator().manual_seed(0))
     inputs = _cpu_inputs(cfg, with_depth="D" in params)
-    card64 = _family_step("float64", DEVICE, params, inputs, cfg)
-    cpu64 = _family_step("float64", "cpu", params, inputs, cfg)
-    card32 = _family_step("float32", DEVICE, params, inputs, cfg)
-    cpu32 = _family_step("float32", "cpu", params, inputs, cfg)
+    masks = _dropout_masks(cfg, 2, (48, 64))
+    card64 = _family_step("float64", DEVICE, params, inputs, cfg, masks)
+    cpu64 = _family_step("float64", "cpu", params, inputs, cfg, masks)
+    card32 = _family_step("float32", DEVICE, params, inputs, cfg, masks)
+    cpu32 = _family_step("float32", "cpu", params, inputs, cfg, masks)
     noise = torch.Generator().manual_seed(1)
     perturbed = tuple(x * (1 + 1e-7 * torch.randn(x.shape, generator=noise, dtype=x.dtype))
                       if x.is_floating_point() else x for x in inputs)
-    cpu64_perturbed = _family_step("float64", "cpu", params, perturbed, cfg)
+    cpu64_perturbed = _family_step("float64", "cpu", params, perturbed, cfg, masks)
     report = {"family": family,
               "card_fp64_vs_cpu_fp64": _iteration_errors(card64, cpu64),
               "cpu_fp64_input_noise_1e-7_vs_cpu_fp64": _iteration_errors(cpu64_perturbed, cpu64),
@@ -1132,11 +1207,49 @@ def _family_card_vs_cpu(family, params=None):
     return report, failures
 
 
+def _fresh_masks_check():
+    """On the card, ``fcn8s_vgg16`` with num_k 2 and the train state's own
+    mask source (``SeededMasks``): one MCD iteration at batch 2, 48x64
+    draws 10 masks, and step C's two repetitions draw different ones."""
+    import torch
+
+    from mcseg_tpu_torch.train.loops import make_adapt_iteration
+    from mcseg_tpu_torch.train.state import create_train_state
+
+    cfg = _train_config("bfloat16", hw=(48, 64), batch=2, net="fcn8s_vgg16")
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, num_k=2))
+    state = create_train_state(cfg.model, cfg.train, 0, DEVICE)
+    source, drawn = state.masks, []
+
+    def recording(shape, device):
+        drawn.append(source(shape, device))
+        return drawn[-1]
+
+    recording.reseed = source.reseed
+    state.install_masks(recording)
+    src, tgt = _raw_pair(cfg, 2, DEVICE)
+    make_adapt_iteration(cfg)(state, src, tgt)
+    torch.cuda.synchronize()
+    c = drawn[6:]  # C repetition 0: drop6, drop7; repetition 1: drop6, drop7
+    fresh = len(drawn) == 10 and all(m.device.type == DEVICE for m in drawn) and not any(
+        torch.equal(a, b) for a, b in ((c[0], c[2]), (c[1], c[3])))
+    report = {"masks": len(drawn), "device": str(drawn[0].device),
+              "keep_share": float(torch.stack(drawn).float().mean()),
+              "step_c_repetitions_differ": fresh}
+    del state
+    torch.cuda.empty_cache()
+    if not fresh:
+        raise AssertionError(f"step C's dropout masks: {report}")
+    return report
+
+
 def phase_families(smi_line):
     """One MCD configuration of each family the CLI flags reach beyond the
     main one, at full width (640x480, batch 8, bf16, num_k 4): 2 launches
-    per iteration, finite losses, every tensor moved; and a card-vs-CPU
-    iteration at 48x64 for three of them (``_family_card_vs_cpu``)."""
+    per iteration, finite losses, every tensor moved, a stage breakdown and
+    one ``evaluate`` batch of the FCN8s and PSP states; a card-vs-CPU
+    iteration at 48x64 for five of them (``_family_card_vs_cpu``); and step
+    C's fresh dropout masks on the card (``_fresh_masks_check``)."""
     runs = [_family_run(f, smi_line) for f in FAMILIES]
     checks, failures = [], []
     for family in FAMILIES_CARD_VS_CPU:
@@ -1145,12 +1258,12 @@ def phase_families(smi_line):
         failures += fails
     emit("families", batch=B, hw=[H, W], dtype="bfloat16", num_k=4, upsample="convt",
          warmup=1, iterations=FAMILY_TIMED, runs=runs, card_vs_cpu=checks,
-         bounds=CARD_VS_CPU_BOUNDS, card=smi_line,
+         bounds=CARD_VS_CPU_BOUNDS, fresh_dropout_masks=_fresh_masks_check(), card=smi_line,
          note="raw batches staged on the card; images counted as source plus "
               "target (2 x batch) per iteration; random weights")
     if failures:
         raise AssertionError(f"card vs CPU float64 iteration: {failures}")
-    return sum(r["launches"] for r in runs)
+    return sum(r["launches"] + r.get("evaluate", {}).get("launches", 0) for r in runs)
 
 
 def main():

@@ -26,7 +26,7 @@ from mcseg_tpu_torch.data.labels import get_label_spec
 
 def _add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--net", default="drn_d_38",
-                   help="drn_d_22|38|54|105, drn_c_26|42, fcn8s_vgg16")
+                   help="drn_d_22|38|54|105, drn_c_26|42, fcn8s_vgg16, psp")
     p.add_argument("--input_ch", type=int, default=3, choices=[1, 3, 4, 6, 7],
                    help="1 depth | 3 rgb/hha | 4 rgb+(depth|ir|boundary) | "
                         "6 rgb+hha | 7 rgb+hha+boundary")

@@ -25,7 +25,7 @@ def _asdict(cfg) -> Dict[str, Any]:
 class ModelConfig:
     """Model zoo selection (the reference's ``get_models(...)`` surface)."""
 
-    net: str = "drn_d_38"  # drn_d_14|22|38|54|105, drn_c_26|42
+    net: str = "drn_d_38"  # drn_d_14|22|38|54|105, drn_c_26|42, fcn8s_vgg16, psp
     input_ch: int = 3  # 1 depth | 3 rgb | 4 rgb+d | 6 rgb+hha | 7 rgb+hha+boundary
     n_class: int = 40
     method: str = "MCD"  # MCD (G,F1,F2) | source-only (G,F1)

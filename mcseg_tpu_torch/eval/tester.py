@@ -40,10 +40,12 @@ def _averaged_head_params(params1: Dict[str, torch.Tensor],
     Every op of a PixelClassifier (1x1 conv, bias, fixed bilinear upsample)
     is linear, so averaging the logits equals one application with averaged
     weight and bias: half the score convs and full-resolution upsamples.
-    A late-fusion head is the sum of two PixelClassifiers, linear in its
-    parameters too, so the same average holds it; the JAX tester scores
-    late fusion in the two-apply form, the same function
-    (``tests/test_torch_fusion.py`` holds the two in float64). The average
+    A late-fusion head (the sum of two PixelClassifiers) and the FCN8s
+    decoder (three score convs, fixed 2x and 8x upsamples, crops and adds)
+    are affine in their parameters too, so the same average holds them;
+    the JAX tester scores both in the two-apply form, the same function
+    (``tests/test_torch_fusion.py`` and ``tests/test_torch_vgg_psp.py``
+    hold the two in float64). The average
     is taken in float32 parameter space (before any bf16 compute cast), in
     float64 under a float64 oracle."""
     if params1.keys() != params2.keys():

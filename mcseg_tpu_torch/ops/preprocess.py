@@ -28,12 +28,12 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from mcseg_tpu_torch.core.config import DataConfig
 from mcseg_tpu_torch.data.labels import get_label_spec
 from mcseg_tpu_torch.ops.hha import depth_to_hha_batch
 from mcseg_tpu_torch.ops.normalize import fused_normalize_stack
+from mcseg_tpu_torch.ops.upsample import resize_image_nchw
 
 
 def depth_to_meters(d: torch.Tensor) -> torch.Tensor:
@@ -53,12 +53,9 @@ def resize_bilinear(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
     """[B,h,w,C] float -> [B,H,W,C], half-pixel bilinear with the JAX
     ``jax.image.resize`` semantics: antialiased (a widened triangle) along
     a downscaled axis, plain two-tap along an upscaled one."""
-    h, w = x.shape[1:3]
-    if (h, w) == tuple(hw):
+    if tuple(x.shape[1:3]) == tuple(hw):
         return x
-    y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(hw), mode="bilinear",
-                      align_corners=False, antialias=hw[0] < h or hw[1] < w)
-    return y.permute(0, 2, 3, 1).contiguous()
+    return resize_image_nchw(x.permute(0, 3, 1, 2), *hw).permute(0, 2, 3, 1).contiguous()
 
 
 def _extra_channels(batch: Dict[str, torch.Tensor], input_ch: int,

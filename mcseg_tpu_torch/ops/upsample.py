@@ -41,6 +41,21 @@ def resize_bilinear_nchw(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tenso
                          align_corners=False)
 
 
+def resize_image_nchw(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Half-pixel bilinear resize with ``jax.image.resize``'s semantics:
+    antialiased (a widened triangle) along a downscaled axis, plain two-tap
+    along an upscaled one; the identity at the same size."""
+    h, w = x.shape[2:]
+    if (h, w) == (out_h, out_w):
+        return x
+    antialias = out_h < h or out_w < w
+    if antialias and x.device.type == "cpu" and x.dtype in (torch.bfloat16, torch.float16):
+        # the CPU has no reduced-precision antialiased kernel
+        return resize_image_nchw(x.float(), out_h, out_w).to(x.dtype)
+    return F.interpolate(x, size=(out_h, out_w), mode="bilinear", align_corners=False,
+                         antialias=antialias)
+
+
 def upsample_logits(x: torch.Tensor, factor: int, mode: str = "resize") -> torch.Tensor:
     if factor == 1:
         return x

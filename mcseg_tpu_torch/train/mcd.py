@@ -9,7 +9,10 @@ al., CVPR 2018, Maximum Classifier Discrepancy):
           num_k times, each with a fresh forward
 
 G stays in train mode throughout, so its BatchNorm statistics advance in
-every forward, in the order A: xs; B: xs, xt; C: xt x num_k. In step B G
+every forward, in the order A: xs; B: xs, xt; C: xt x num_k, and a G with
+dropout draws fresh masks in every forward, in the same order (a new mask
+for each of step C's repetitions, as the JAX step's ``fold_in(kc, i)``),
+from the state's mask source reseeded per iteration. In step B G
 runs under ``no_grad``; in step C only G's gradients are taken
 (``torch.autograd.grad``), so neither head nor opt_f's momentum moves.
 
@@ -108,6 +111,7 @@ def make_mcd_step(cfg: TrainConfig, uses_one_classifier: bool = False,
         lr = lr_fn(state.step)
         set_lr(state.opt_g, lr)
         set_lr(state.opt_f, lr)
+        state.reseed_masks()
 
         # ---- STEP A: source supervision, update G + F1 + F2 ----
         state.opt_g.zero_grad(set_to_none=True)

@@ -13,7 +13,9 @@ puts this loss in step A, which updates G, F1, F2, D and B; steps B and C
 are the plain discrepancy game of ``train/mcd.py``. In step B the
 auxiliary heads get zero gradients, so opt_f still applies weight decay and
 momentum to them, as optax does to its whole tree. As in the JAX trainer,
-the multitask MCD step has no ``uses_one_classifier`` variant.
+the multitask MCD step has no ``uses_one_classifier`` variant. Both steps
+reseed the dropout masks as the other trainers do, though the one trunk
+with dropout, FCN8s, has no multitask heads (``models.factory.get_aux_heads``).
 """
 
 from __future__ import annotations
@@ -79,6 +81,7 @@ def make_multitask_source_step(cfg: TrainConfig, depth_weight: float = 0.5,
         lr = lr_fn(state.step)
         set_lr(state.opt_g, lr)
         set_lr(state.opt_f, lr)
+        state.reseed_masks()
         loss, seg, dep, bnd = _source_losses(state, x, y, depth, depth_weight,
                                              boundary_weight, dtype)
         _update_all(state, loss)
@@ -109,6 +112,7 @@ def make_multitask_mcd_step(cfg: TrainConfig, depth_weight: float = 0.5,
         lr = lr_fn(state.step)
         set_lr(state.opt_g, lr)
         set_lr(state.opt_f, lr)
+        state.reseed_masks()
         loss_a, seg, dep, bnd = _source_losses(state, xs, ys, ds, depth_weight,
                                                boundary_weight, dtype)
         _update_all(state, loss_a)

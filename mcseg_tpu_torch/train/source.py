@@ -8,7 +8,8 @@ checkpoint can seed MCD adaptation,
 
 and G, F1 and F2 take one update each through the state's two optimizers,
 with the schedule's lr set on both. G runs in train mode once per step, so
-its BatchNorm statistics advance once.
+its BatchNorm statistics advance once and a G with dropout draws one set
+of masks.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ def make_source_step(cfg: TrainConfig, dtype: torch.dtype = torch.float32) -> Ca
         lr = lr_fn(state.step)
         set_lr(state.opt_g, lr)
         set_lr(state.opt_f, lr)
+        state.reseed_masks()
         state.opt_g.zero_grad(set_to_none=True)
         state.opt_f.zero_grad(set_to_none=True)
         with compute_context(dtype, x.device):

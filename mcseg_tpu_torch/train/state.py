@@ -16,6 +16,9 @@ eager step updates in place:
               order (F1, F2, D, B)
   step        per-iteration counter driving the lr schedule
   gen         CPU ``torch.Generator`` that made the initial weights
+  masks       the dropout mask source of G (``models.fcn_vgg.SeededMasks``
+              on the device, seeded from (seed, step)), or None for a
+              trunk without dropout; the steps call ``reseed_masks`` first
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ from mcseg_tpu_torch.core.config import ModelConfig, TrainConfig
 from mcseg_tpu_torch.core.device import compute_dtype, resolve_device
 from mcseg_tpu_torch.models.factory import (
     Params, get_aux_heads, get_models, init_aux_heads, init_models)
+from mcseg_tpu_torch.models.fcn_vgg import (
+    MaskSource, SeededMasks, dropout_layers, set_mask_source)
 from mcseg_tpu_torch.train.optim import get_optimizer
 
 
@@ -44,6 +49,7 @@ class MCDTrainState:
     gen: torch.Generator
     d: Optional[nn.Module] = None
     b: Optional[nn.Module] = None
+    masks: Optional[MaskSource] = None
 
     def modules(self) -> Dict[str, nn.Module]:
         """``{"G", "F1", "F2"[, "D"][, "B"]}`` in checkpoint order."""
@@ -54,6 +60,17 @@ class MCDTrainState:
         """The modules' state dicts, detached copies on the CPU."""
         return {name: {k: v.detach().cpu().clone() for k, v in m.state_dict().items()}
                 for name, m in self.modules().items()}
+
+    def install_masks(self, source: MaskSource) -> None:
+        """Make ``source`` G's dropout mask source."""
+        set_mask_source(self.g, source)
+        self.masks = source
+
+    def reseed_masks(self) -> None:
+        """Seed this iteration's dropout masks from the step (a no-op
+        without dropout): every step calls it before its first G forward."""
+        if self.masks is not None:
+            self.masks.reseed(self.step)
 
 
 def param_dtype(model_cfg: ModelConfig) -> torch.dtype:
@@ -67,7 +84,8 @@ def create_train_state(model_cfg: ModelConfig, train_cfg: TrainConfig, seed: int
     ``aux_heads`` ("D", "B"; ``models.factory.init_models`` then
     ``init_aux_heads`` with one generator seeded by ``seed``), or
     ``params`` when given, on ``device``, with fresh optimizers from
-    ``train_cfg``."""
+    ``train_cfg``. A G with dropout gets ``SeededMasks(seed)`` on
+    ``device``."""
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     aux = get_aux_heads(model_cfg, aux_heads)
@@ -83,5 +101,8 @@ def create_train_state(model_cfg: ModelConfig, train_cfg: TrainConfig, seed: int
     opt_g = get_optimizer(mods["G"].parameters(), **opt)
     opt_f = get_optimizer([p for k, m in mods.items() if k != "G" for p in m.parameters()],
                           **opt)
-    return MCDTrainState(g=mods["G"], f1=mods["F1"], f2=mods["F2"], opt_g=opt_g,
-                         opt_f=opt_f, step=0, gen=gen, d=mods.get("D"), b=mods.get("B"))
+    state = MCDTrainState(g=mods["G"], f1=mods["F1"], f2=mods["F2"], opt_g=opt_g,
+                          opt_f=opt_f, step=0, gen=gen, d=mods.get("D"), b=mods.get("B"))
+    if dropout_layers(state.g):
+        state.install_masks(SeededMasks(seed, dev))
+    return state

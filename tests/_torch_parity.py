@@ -1,6 +1,7 @@
 """Shared helpers of the JAX-vs-port parity tests (tests/test_torch_*.py):
-seeded JAX parameters with non-trivial BatchNorm, a JAX float64 block, and
-the train preprocess's random draws as JAX makes them."""
+seeded JAX parameters with non-trivial BatchNorm, a JAX float64 block, the
+train preprocess's random draws as JAX makes them, the dropout masks of
+the JAX VGG trunk, and the JAX FCN8s head lifted to float64."""
 
 import contextlib
 import dataclasses
@@ -59,7 +60,8 @@ def port_params_jax_layout(model_cfg, img_hw=(48, 64), seed=0):
     made from the port's seeded initializer instead of JAX's (whose
     forward costs seconds of XLA compiles per trunk). The tree is held to
     the JAX initializer's names and shapes by ``jax.eval_shape``, which
-    compiles nothing; BN statistics and head biases are randomized."""
+    compiles nothing; BN statistics and the biases of every conv that has
+    one (the heads', and the VGG trunk's) are randomized."""
     import torch
 
     from mcseg_tpu_torch.core.config import ModelConfig as PortModelConfig
@@ -78,19 +80,19 @@ def port_params_jax_layout(model_cfg, img_hw=(48, 64), seed=0):
         assert got_shapes == ref_shapes, "port tree differs from the JAX initializer's"
     rng = np.random.RandomState(seed)
     _randomize_bn(params["G"], stats["G"], rng)
-    for head in ("F1", "F2"):
-        for path, bias in _score_biases(params[head]):
+    for name in ("G", "F1", "F2"):
+        for path, bias in _conv_biases(params[name]):
             path["bias"] = rng.normal(0.0, 0.1, bias.shape).astype(np.float32)
     return params, stats
 
 
-def _score_biases(tree):
-    """(dict holding a score conv's 'bias', the bias) for every head in the
-    F tree (one, or two under late fusion)."""
-    if "score" in tree:
-        return [(tree["score"], tree["score"]["bias"])]
+def _conv_biases(tree):
+    """(dict holding a conv's 'bias', the bias) for every conv of the tree
+    that has one (DRN and PSP convs have none; BN biases are not convs')."""
+    if "kernel" in tree and "bias" in tree:
+        return [(tree, tree["bias"])]
     return [pair for sub in tree.values() if isinstance(sub, dict)
-            for pair in _score_biases(sub)]
+            for pair in _conv_biases(sub)]
 
 
 def jax_train_draws(key, b, pre, target, random_crop, random_flip):
@@ -109,3 +111,47 @@ def jax_train_draws(key, b, pre, target, random_crop, random_flip):
     flip = (jax.random.bernoulli(k_flip, 0.5, (b,)) if random_flip
             else jnp.zeros((b,), bool))
     return tuple(torch.from_numpy(np.asarray(a).astype(np.int32)) for a in (tops, lefts, flip))
+
+
+class _Float64Jnp:
+    """``jax.numpy`` with ``float32`` read as ``float64``."""
+
+    float32 = jnp.float64
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+
+def lift_fcn8s_float32_cast(monkeypatch):
+    """The JAX FCN8s head casts its three scores to exactly float32
+    (``mcseg_tpu/models/fcn_vgg.py:123-125``), under the float64 oracle
+    too, where the port's head casts to at least float32 and keeps float64.
+    For a float64 comparison the JAX module reads ``jnp.float32`` as
+    float64 (its ``param_dtype`` too, which applying given parameters does
+    not read); nothing else of the module changes."""
+    from mcseg_tpu.models import fcn_vgg
+
+    monkeypatch.setattr(fcn_vgg, "jnp", _Float64Jnp())
+
+
+def flax_vgg_dropout_masks(keys, shape):
+    """The keep-masks that the JAX VGG trunk's two ``nn.Dropout(0.5)``
+    layers draw in a train-mode forward with dropout rng ``key``, for each
+    of ``keys`` in turn: NCHW bool torch tensors in call order (drop6,
+    drop7, drop6, ...). ``shape`` is the NHWC activation's. A probe module
+    with two unnamed Dropouts at its root has their scope paths
+    (``Dropout_0``, ``Dropout_1``), so flax derives the same rngs and draws
+    the same masks; call it with x64 set as the step that uses the masks
+    (``bernoulli`` draws in the default float dtype)."""
+    import flax.linen as nn
+    import torch
+
+    class _Probe(nn.Module):
+        @nn.compact
+        def __call__(self, x):
+            return (nn.Dropout(0.5, deterministic=False)(x),
+                    nn.Dropout(0.5, deterministic=False)(x))
+
+    ones = jnp.ones(shape)
+    return [torch.from_numpy(np.asarray(y) > 0).permute(0, 3, 1, 2)
+            for k in keys for y in _Probe().apply({}, ones, rngs={"dropout": k})]

@@ -181,6 +181,29 @@ def test_source_train_and_test_end_to_end(tmp_path):
     assert source_test.main([str(run / "last"), "--use_f2"], device="cpu") == both
 
 
+def test_adapt_train_and_test_psp_end_to_end(tmp_path, monkeypatch):
+    """``--net psp`` through both commands, then a ``--resume`` of its
+    checkpoint into another trunk, refused with JAX's structure message
+    before any state is built."""
+    run = tmp_path / "psp"
+    argv = ["synthetic", "synthetic_shifted", "--num_k", "2", "--input_ch", "6",
+            *_argv(run, 1)]
+    argv[argv.index("drn_d_14")] = "psp"
+    state = adapt_train.main(argv, device="cpu")
+    assert state.step == 1 and state.masks is None  # no dropout in this trunk
+    params, cfg = load_params(str(run / "last"))
+    assert cfg.model.net == "psp" and "ppm.fuse.weight" in params["G"]
+    (r,) = [r for r in _train_log(run) if "loss_source" in r]
+    assert all(np.isfinite(r[k]) for k in ("loss_source", "loss_b", "loss_dis"))
+    miou = adapt_test.main([str(run / "last")], device="cpu")
+    assert np.isfinite(miou) and miou == evaluate(params, cfg, print_table=False, device="cpu")[0]
+    built = []
+    monkeypatch.setattr(loops, "create_train_state", lambda *a, **k: built.append(a))
+    with pytest.raises(ValueError, match="--net: checkpoint has 'psp', CLI has 'drn_d_14'"):
+        _adapt(tmp_path / "drift", 2, "--input_ch", "6", "--resume", str(run / "last"))
+    assert not built
+
+
 def test_cli_resume_repeats_the_uninterrupted_run(tmp_path, monkeypatch):
     full = _adapt(tmp_path / "full", 2)
     _adapt(tmp_path / "cut", 1)
