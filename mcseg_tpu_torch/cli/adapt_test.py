@@ -2,7 +2,7 @@
 
 Rebuilds the model from the config stored beside the checkpoint, averages
 the two classifiers unless ``--f1_only``, and prints the per-class IoU
-table.
+table; ``--submit_dir`` also writes the Cityscapes submission dumps.
 
     python -m mcseg_tpu_torch.cli.adapt_test runs/run0/last nyu
 """
@@ -44,7 +44,8 @@ def main(argv=None, average_classifiers=None, device="cuda"):
         cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, **overrides))
     dataset = get_dataset(cfg.data.tgt_dataset, cfg.data, args.split)
     miou, _, _ = evaluate(params, cfg, dataset, device=dev,
-                          average_classifiers=average_classifiers)
+                          average_classifiers=average_classifiers,
+                          submit_dir=args.submit_dir)
     return miou
 
 

@@ -6,13 +6,11 @@ parsers, flag names, defaults and choices (``--net``, ``--input_ch``,
 src/tgt positionals), so that a reference command line translates 1:1,
 plus ``fix_img_shape_args`` and ``args_to_config``.
 
-Every flag parses. Some only choose how the JAX package computes or feeds
-the same result (``--s2d``, ``--num_workers``, ``--device_corpus*``,
-``--decode_cache_gb``, ``--decode_disk_cache_*``, ``--sync_checkpoint``):
-the port keeps them in the config sidecar and does not act on them. Flags
-that change what a run produces or where it runs, and that the port has
-not ported, raise ``NotImplementedError`` from ``reject_unported`` when
-given a value other than their default.
+Every flag parses. ``--s2d`` only chooses how the JAX package lays out the
+same computation: the port keeps it in the config sidecar and does not act
+on it. Flags that change what a run produces or where it runs, and that
+the port has not ported, raise ``NotImplementedError`` from
+``reject_unported`` when given a value other than their default.
 """
 
 from __future__ import annotations
@@ -75,8 +73,9 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--process_id", type=int, default=None,
                    help="rank for --coordinator (not ported: raises)")
     p.add_argument("--sync_checkpoint", action="store_true",
-                   help="kept in the config; the port always writes "
-                        "checkpoints synchronously")
+                   help="write epoch checkpoints on the training thread "
+                        "(default: copied to host memory, written in the "
+                        "background)")
     p.add_argument("--eval_every_epochs", type=int, default=0,
                    help="score the target val split at epoch ends (0 = off)")
 
@@ -94,22 +93,24 @@ def _add_data_args(p: argparse.ArgumentParser) -> None:
                    help="appearance-shift strength for the synthetic_shifted "
                         "target corpus (adaptation A/B harness)")
     p.add_argument("--num_workers", type=int, default=4,
-                   help="JAX-package decode threads; kept in the config, "
-                        "no effect in the port")
+                   help="host decode threads (batches decoded ahead)")
     p.add_argument("--no_random_flip", action="store_true")
     p.add_argument("--no_random_crop", action="store_true")
     p.add_argument("--device_corpus", choices=["auto", "on", "off"],
                    default="auto",
-                   help="JAX-package input path; kept in the config, no "
-                        "effect in the port")
+                   help="decode the corpus once and keep it on the card, "
+                        "batches gathered by index (auto: when it fits "
+                        "--device_corpus_gb)")
     p.add_argument("--device_corpus_gb", type=float, default=4.0,
-                   help="budget for --device_corpus auto (no effect in the port)")
+                   help="device-memory budget of --device_corpus auto")
     p.add_argument("--decode_cache_gb", type=float, default=4.0,
-                   help="JAX-package decode RAM cache (no effect in the port)")
+                   help="RAM cache of decoded samples (0 = off)")
     p.add_argument("--decode_disk_cache_gb", type=float, default=0.0,
-                   help="JAX-package decode disk cache (no effect in the port)")
+                   help="disk cache of decoded samples, beside the corpus "
+                        "(0 = off)")
     p.add_argument("--decode_disk_cache_dir", default="",
-                   help="location of that cache (no effect in the port)")
+                   help="root of that cache (default: "
+                        "<data_root>/.mcseg_decode_cache)")
 
 
 def fix_img_shape_args(shape: Sequence[int]) -> tuple:
@@ -157,7 +158,8 @@ def get_testing_parser(name: str = "test") -> argparse.ArgumentParser:
     p.add_argument("--outdir", default=None,
                    help="label + colour PNG dumps (not ported: raises)")
     p.add_argument("--submit_dir", default=None,
-                   help="Cityscapes submission dumps (not ported: raises)")
+                   help="Cityscapes submission dumps: labelId PNGs named "
+                        "after their frames")
     p.add_argument("--saves_prob", action="store_true",
                    help="probability map dumps (not ported: raises)")
     p.add_argument("--use_f2", action="store_true",
@@ -177,7 +179,6 @@ _UNPORTED = {
     "tb_dir": ("", "Queue 1 item 9 (run outputs)"),
     "outdir": (None, "Queue 1 item 9 (run outputs)"),
     "saves_prob": (False, "Queue 1 item 9 (run outputs)"),
-    "submit_dir": (None, "Queue 1 item 6 (real corpora and submission dumps)"),
     "multihost": (False, "Queue 1 item 7 (parallelism)"),
     "coordinator": (None, "Queue 1 item 7 (parallelism)"),
     "num_processes": (None, "Queue 1 item 7 (parallelism)"),

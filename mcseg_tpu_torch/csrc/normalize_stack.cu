@@ -8,10 +8,17 @@
 //   out[b,h,w,c] = (x[b,h,sw,c] - mean[c]) / std[c],  sw = flip[b] ? W-1-w : w
 //   x = concat(rgb / 255, extra)   (input_ch 3: rgb only; 1: extra only)
 //
-// One addition to the TPU kernel's contract: a second instance takes RGB as
-// float32 already in [0, 1] (scale 1 instead of 1/255), so the eval path
-// whose decode size differs from the target size (resized RGB) stays on
-// the kernel too. Every value is computed with the division (not a
+// Two additions to the TPU kernel's contract: a second instance takes RGB
+// as float32 already in [0, 1] (scale 1 instead of 1/255), so the eval
+// path whose decode size differs from the target size (resized RGB) stays
+// on the kernel too; and input_ch 7 (RGB + HHA + the binarized boundary
+// plane, E = 4), which the Pallas kernel refuses (normalize.py:49-50
+// raises): there the function matched is the JAX package's
+// ops/preprocess.py _normalize_stack for 7 (RGB and HHA statistics, then
+// mean 0.5 and std 0.25 for the boundary plane). Its 14-byte bf16 pixels
+// need nothing of their own: the output span leaves as one flat stream of
+// 16-byte stores whatever the pixel size, with the unaligned head and
+// tail handled as for every shape. Every value is computed with the division (not a
 // reciprocal multiply), so bf16 results equal the plain PyTorch version and
 // float32 ones are within an ulp of it.
 //
@@ -63,7 +70,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMinBlocks = 8;  // blocks per SM: ptxas keeps to 32 registers
-constexpr int kMaxCh = 6;
+constexpr int kMaxCh = 7;
 constexpr int kSmemBudget = 48 * 1024;  // the default dynamic shared memory limit
 constexpr int kUnitLoadBytes = 16 * 1024;  // source bytes of a multi-row unit, at most
 
@@ -169,7 +176,7 @@ __device__ __forceinline__ void write_out(T* __restrict__ dst, const T* src, int
   copy_head_tail(dst, src, s, n);
 }
 
-// C = input_ch, E = extra channels (0, 1 or 3); RgbT = uint8_t | float.
+// C = input_ch, E = extra channels (0, 1, 3 or 4); RgbT = uint8_t | float.
 // Grid (units per sample, B). A unit is `rows` whole rows of the sample
 // (rows > 1 only when n_seg == 1) or one segment of `seg` columns of a row
 // (n_seg > 1); either way its pixels are contiguous in every tensor.
@@ -280,6 +287,7 @@ int dispatch_ch(const void* rgb, const void* extra, const void* flip,
     case 6: return launch<RgbT, OutT, 6, 3>(rgb, extra, flip, out, B, H, W, ms, stream);
     case 4: return launch<RgbT, OutT, 4, 1>(rgb, extra, flip, out, B, H, W, ms, stream);
     case 1: return launch<RgbT, OutT, 1, 1>(rgb, extra, flip, out, B, H, W, ms, stream);
+    case 7: return launch<RgbT, OutT, 7, 4>(rgb, extra, flip, out, B, H, W, ms, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -76,6 +76,24 @@ def nyu40_raw_to_train_table() -> np.ndarray:
     return _table({raw: raw - 1 for raw in range(1, 41)})
 
 
+def cityscapes_train_to_id_table() -> np.ndarray:
+    """[256] uint8 lookup: train id -> full Cityscapes label id, the inverse
+    of ``cityscapes_id_to_train_table``; everything else -> 0
+    ("unlabeled"). The evaluation server scores labelId PNGs."""
+    table = np.zeros(256, dtype=np.uint8)
+    for k, v in _CITY_ID_TO_TRAIN.items():
+        table[v] = k
+    return table
+
+
+def get_submit_table(dataset: str):
+    """Prediction remap of the submission dumps (``--submit_dir``), or None
+    for a corpus without an evaluation server (all but Cityscapes)."""
+    if dataset.lower() in ("city", "cityscapes"):
+        return cityscapes_train_to_id_table()
+    return None
+
+
 def voc_style_palette(n: int) -> np.ndarray:
     """Deterministic class->RGB palette via the PASCAL-VOC bit-shuffle."""
     pal = np.zeros((n, 3), dtype=np.uint8)

@@ -9,11 +9,14 @@ host. The tester and the serving path (eval/serving.py) both wrap
 checkpoint's auxiliary heads are scored too: the depth head "D" against
 the batch's depth in metres (``eval.depth_metrics``), the boundary head "B"
 against the edges of the labels, strict and within a tolerance
-(``boundary_match_sums``).
+(``boundary_match_sums``). With ``submit_dir``, each prediction is also
+written in the corpus's submission format (Cityscapes: labelId PNGs named
+after the source frames).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
@@ -22,8 +25,10 @@ import torch.nn.functional as F
 
 from mcseg_tpu_torch.core.config import ExperimentConfig
 from mcseg_tpu_torch.core.device import compute_context, compute_dtype, resolve_device
-from mcseg_tpu_torch.data.datasets import get_dataset, stack_samples
-from mcseg_tpu_torch.data.labels import IGNORE, get_label_spec
+from mcseg_tpu_torch.data.datasets import get_dataset
+from mcseg_tpu_torch.data.labels import IGNORE, get_label_spec, get_submit_table
+from mcseg_tpu_torch.data.pipeline import map_ahead
+from mcseg_tpu_torch.data.transforms import save_label_png
 from mcseg_tpu_torch.eval.depth_metrics import depth_metric_sums, finalize_depth_metrics
 from mcseg_tpu_torch.eval.metrics import fast_hist, format_iou_table, miou_from_hist
 from mcseg_tpu_torch.losses.seg import boundary_targets_from_labels
@@ -194,30 +199,61 @@ def _aux_table_lines(sums: Dict[str, Dict[str, float]], tol: int) -> str:
     return out
 
 
-def padded_batches(dataset, bs: int) -> Iterator[Tuple[Dict[str, np.ndarray], int]]:
-    """Full-size batches over all samples: the tail batch is padded with
-    copies of its last sample whose labels are set to ignore, so padding
-    adds nothing to the confusion matrix (dropping the tail would skew
-    mIoU). Yields (batch, number of real samples)."""
+def padded_batches(dataset, bs: int, num_workers: int = 0,
+                   pad_depth: bool = False) -> Iterator[Tuple[Dict[str, np.ndarray], int]]:
+    """Full-size batches over all samples, in order, through the reader's
+    ``get_batch``: the tail batch is padded with copies of its last sample
+    whose labels are set to ignore (and, with ``pad_depth``, whose depth
+    is set to 0, which the depth metrics mask), so padding adds nothing to
+    the scores (dropping the tail would skew mIoU). ``num_workers`` > 1
+    decodes the next batches on a thread pool. Yields (batch, number of
+    real samples)."""
     n = len(dataset)
-    for start in range(0, n, bs):
+
+    def load(start):
         idx = list(range(start, min(start + bs, n)))
         n_pad = bs - len(idx)
-        batch = stack_samples(dataset, idx + [idx[-1]] * n_pad)
+        batch = dataset.get_batch(idx + [idx[-1]] * n_pad)
         if n_pad:
+            batch["label"] = batch["label"].copy()
             batch["label"][len(idx):] = IGNORE
-        yield batch, len(idx)
+            if pad_depth and "depth" in batch:
+                batch["depth"] = batch["depth"].copy()
+                batch["depth"][len(idx):] = 0
+        return batch, len(idx)
+
+    yield from map_ahead(load, range(0, n, bs), num_workers)
+
+
+def _submit_names(dataset, n: int):
+    """The dump names of a submission: the source frames' file names."""
+    files = getattr(dataset, "samples", None)
+    return [os.path.basename(files[i]["rgb"]) if files else f"{i:06d}.png"
+            for i in range(n)]
 
 
 def evaluate(params: Params, cfg: ExperimentConfig, dataset=None,
              max_batches: Optional[int] = None, print_table: bool = True,
-             device="cuda", average_classifiers: bool = True):
+             device="cuda", average_classifiers: bool = True,
+             num_workers: Optional[int] = None, submit_dir: Optional[str] = None):
     """Score ``params`` on ``dataset`` (default: the config's target corpus,
     val split) with F1 and F2 averaged, or F1 alone when
     ``average_classifiers`` is False. A multitask checkpoint's depth head
     is scored when the corpus has depth, and its boundary head always;
-    their lines follow the IoU table. Returns (miou, hist int64 [n, n]
-    numpy, table string)."""
+    their lines follow the IoU table. Batches decode on ``num_workers``
+    threads (default ``cfg.data.num_workers``). ``submit_dir`` also dumps
+    every prediction in the corpus's submission format, named after its
+    source frame (Cityscapes' labelIds; a corpus without a protocol
+    raises); on an unlabeled split the table is meaningless and the dumps
+    exact. Returns (miou, hist int64 [n, n] numpy, table string)."""
+    submit_table = None
+    if submit_dir:
+        submit_table = get_submit_table(cfg.data.tgt_dataset)
+        if submit_table is None:
+            raise ValueError(
+                f"no submission protocol for corpus {cfg.data.tgt_dataset!r} "
+                "(only Cityscapes has an evaluation server)")
+        os.makedirs(submit_dir, exist_ok=True)
     dev = resolve_device(device)
     dataset = dataset or get_dataset(cfg.data.tgt_dataset, cfg.data, "val")
     _, _, names, _ = get_label_spec(cfg.data.tgt_dataset)
@@ -227,19 +263,29 @@ def evaluate(params: Params, cfg: ExperimentConfig, dataset=None,
                           with_boundary="B" in params, boundary_tol=tol)
     n_class = cfg.model.n_class
     bs = min(cfg.data.batch_size, len(dataset))
+    if num_workers is None:
+        num_workers = cfg.data.num_workers
     total = torch.zeros((n_class, n_class), dtype=torch.int64, device=dev)
     aux_total = {}
-    for bi, (raw, n_real) in enumerate(padded_batches(dataset, bs)):
-        if max_batches is not None and bi >= max_batches:
-            break
-        if with_depth and n_real < bs:
-            raw["depth"][n_real:] = 0  # invalid, so the padding is masked out
-        hist, _, aux = step(raw)
-        total += hist
-        for name, sums in aux.items():
-            acc = aux_total.setdefault(name, {})
-            for k, v in sums.items():
-                acc[k] = acc.get(k, 0) + v.double()
+    dump_names = _submit_names(dataset, len(dataset)) if submit_table is not None else None
+    batches = padded_batches(dataset, bs, num_workers, pad_depth=with_depth)
+    try:
+        for bi, (raw, n_real) in enumerate(batches):
+            if max_batches is not None and bi >= max_batches:
+                break
+            hist, pred, aux = step(raw)
+            total += hist
+            for name, sums in aux.items():
+                acc = aux_total.setdefault(name, {})
+                for k, v in sums.items():
+                    acc[k] = acc.get(k, 0) + v.double()
+            if submit_table is not None:
+                pred_np = pred.cpu().numpy()
+                for k in range(n_real):
+                    save_label_png(submit_table[pred_np[k]],
+                                   os.path.join(submit_dir, dump_names[bi * bs + k]))
+    finally:
+        batches.close()
     total = total.cpu().numpy()
     table = format_iou_table(total, names[:n_class]) + _aux_table_lines(
         {name: {k: float(v) for k, v in sums.items()} for name, sums in aux_total.items()},

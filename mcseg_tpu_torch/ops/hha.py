@@ -17,7 +17,7 @@ The port of the JAX package's ``ops/hha.py``, batched: every plane is
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -123,12 +123,14 @@ def depth_to_hha(depth: torch.Tensor) -> torch.Tensor:
     return depth_to_hha_batch(depth[None])[0]
 
 
-def depth_to_hha_batch(depth: torch.Tensor) -> torch.Tensor:
+def depth_to_hha_batch(depth: torch.Tensor, K: Optional[CameraIntrinsics] = None
+                       ) -> torch.Tensor:
     """[B,H,W] metres (0 / non-finite = missing) -> [B,H,W,3] float32 HHA
-    in [0, 255], with the NYU Kinect intrinsics scaled to the frame size."""
+    in [0, 255], with the camera ``K`` (default: the NYU Kinect intrinsics
+    scaled to the frame size)."""
     depth = depth.to(torch.float32)
     _, h, w = depth.shape
-    K = default_intrinsics(h, w)
+    K = K or default_intrinsics(h, w)
     valid = torch.isfinite(depth) & (depth > 1e-3)
     d = torch.where(valid, depth, 1e3)  # missing -> far away
 

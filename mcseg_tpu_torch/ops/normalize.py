@@ -9,8 +9,11 @@ call that cannot launch raises.
 
 Per sample, where ``flip[b] > 0`` the inputs are mirrored horizontally;
 RGB (uint8, or float32 already in [0, 1]) is scaled to [0, 1] and stacked
-with the extra planes (HHA/255 for input_ch 6, a depth-like plane for 4;
-the extra plane alone for 1); each channel becomes (x - mean[c]) / std[c].
+with the extra planes (HHA/255 for input_ch 6, HHA/255 and the binarized
+boundary plane for 7, a depth-like plane for 4; the extra plane alone for
+1); each channel becomes (x - mean[c]) / std[c]. The Pallas kernel has no
+input_ch 7 instance (it raises); there the function matched is the JAX
+package's ``ops/preprocess.py _normalize_stack``.
 The output is NHWC-contiguous, i.e. an NCHW tensor in channels_last
 memory once permuted.
 """
@@ -25,7 +28,7 @@ import torch
 
 from mcseg_tpu_torch.data.transforms import HHA_MEAN, HHA_STD, RGB_MEAN, RGB_STD
 
-_EXTRA_CH = {3: 0, 6: 3, 4: 1, 1: 1}
+_EXTRA_CH = {3: 0, 6: 3, 4: 1, 1: 1, 7: 4}
 
 
 def _build_mean_std(input_ch: int):
@@ -34,6 +37,9 @@ def _build_mean_std(input_ch: int):
     elif input_ch == 6:
         mean = np.concatenate([RGB_MEAN, HHA_MEAN])
         std = np.concatenate([RGB_STD, HHA_STD])
+    elif input_ch == 7:  # rgb + hha + boundary
+        mean = np.concatenate([RGB_MEAN, HHA_MEAN, [0.5]])
+        std = np.concatenate([RGB_STD, HHA_STD, [0.25]])
     elif input_ch == 4:
         mean = np.concatenate([RGB_MEAN, [0.5]])
         std = np.concatenate([RGB_STD, [0.25]])

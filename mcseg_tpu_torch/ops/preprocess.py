@@ -5,8 +5,9 @@ The port of the JAX package's ``ops/preprocess.py``. Eval:
   raw uint8 RGB [B,h,w,3] (+ float metres | uint16 mm depth [B,h,w], or a
   precomputed uint8 HHA plane, an 'ir' or a 'boundary' plane)
       -> label remap (one gather through the corpus table)
-      -> the extra planes: depth -> HHA (ops.hha) for input_ch 6, one
-         depth-like plane for 1 and 4 (``_extra_channels``)
+      -> the extra planes: depth -> HHA (ops.hha) for input_ch 6, HHA and
+         the binarized boundary plane for 7, one depth-like plane for 1
+         and 4 (``_extra_channels``)
       -> bilinear resize to test_img_shape, skipped when the decode size
          already equals it (exact: the resize is then the identity)
       -> fused normalize/stack (ops.normalize, the CUDA kernel on the card)
@@ -61,7 +62,7 @@ def resize_bilinear(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
 def _extra_channels(batch: Dict[str, torch.Tensor], input_ch: int,
                     hha_on_device: bool = False) -> Optional[torch.Tensor]:
     """Non-RGB channels in [0, 1], [B,h,w,E]: none for input_ch 3, HHA for
-    6, one plane for 1 and 4.
+    6, HHA and the binarized boundary plane for 7, one plane for 1 and 4.
 
     ``hha_on_device`` picks the HHA source when the batch carries both a
     precomputed 'hha' plane and raw 'depth': True encodes from depth. The
@@ -73,12 +74,18 @@ def _extra_channels(batch: Dict[str, torch.Tensor], input_ch: int,
         return None
     has_hha = batch.get("hha") is not None
     has_depth = batch.get("depth") is not None
-    if input_ch == 6:
+    if input_ch in (6, 7):
         if has_hha and not (hha_on_device and has_depth):
-            return batch["hha"].to(torch.float32) / 255.0
-        if has_depth:
-            return depth_to_hha_batch(depth_to_meters(batch["depth"])) / 255.0
-        raise ValueError("input_ch=6 needs 'hha' or 'depth' in the batch")
+            hha = batch["hha"].to(torch.float32) / 255.0
+        elif has_depth:
+            hha = depth_to_hha_batch(depth_to_meters(batch["depth"])) / 255.0
+        else:
+            raise ValueError(f"input_ch={input_ch} needs 'hha' or 'depth' in the batch")
+        if input_ch == 6:
+            return hha
+        if batch.get("boundary") is None:
+            raise ValueError("input_ch=7 needs 'boundary' plus 'hha'/'depth' in the batch")
+        return torch.cat([hha, (batch["boundary"] > 0).to(torch.float32)[..., None]], dim=-1)
     if input_ch in (1, 4):
         if has_depth:
             depth = depth_to_meters(batch["depth"])
@@ -91,10 +98,6 @@ def _extra_channels(batch: Dict[str, torch.Tensor], input_ch: int,
             return (batch["boundary"] > 0).to(torch.float32)[..., None]
         raise ValueError(f"input_ch={input_ch} needs 'depth', 'hha', 'ir' or "
                          "'boundary' in the batch")
-    if input_ch == 7:
-        raise ValueError("input_ch=7 (rgb+hha+boundary) is not ported yet: it "
-                         "needs the 'boundary' planes of the on-disk readers "
-                         "(ROADMAP.md Queue 1 item 6)")
     raise ValueError(f"unsupported input_ch {input_ch}")
 
 

@@ -8,12 +8,15 @@ preprocess (with the normalize kernel) and the step. The crop and flip draws of 
 run repeats an uninterrupted one. The loops share one body
 (``_train_loop``): the NaN guard at log points, a graceful stop on
 SIGTERM/SIGINT or after ``max_hours``, per-epoch checkpoints pruned to
-``keep_checkpoints``, ``last`` at the end, and resume from an epoch
-boundary after a check that the checkpoint has the requested structure.
+``keep_checkpoints`` (written in the background unless
+``--sync_checkpoint``; ``_EpochSaver``), ``last`` at the end, written
+synchronously, and resume from an epoch boundary after a check that the
+checkpoint has the requested structure.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 import signal
@@ -26,8 +29,8 @@ import torch
 from mcseg_tpu_torch.core.config import ExperimentConfig
 from mcseg_tpu_torch.core.device import compute_dtype, resolve_device
 from mcseg_tpu_torch.data.datasets import ZipDataset, get_dataset
-from mcseg_tpu_torch.data.pipeline import batch_iterator
-from mcseg_tpu_torch.eval.tester import batch_to_device
+from mcseg_tpu_torch.data.device_corpus import corpus_stream, resolve_device_corpus
+from mcseg_tpu_torch.data.pipeline import batch_iterator, device_prefetch
 from mcseg_tpu_torch.models.factory import get_aux_heads
 from mcseg_tpu_torch.ops.preprocess import (
     draw_augment, make_train_preprocess, pre_crop_canvas)
@@ -37,7 +40,8 @@ from mcseg_tpu_torch.train.multitask import (
 from mcseg_tpu_torch.train.source import make_source_step
 from mcseg_tpu_torch.train.state import MCDTrainState, create_train_state
 from mcseg_tpu_torch.utils.checkpoint import (
-    load_checkpoint, load_config, prune_epoch_checkpoints, save_checkpoint)
+    AsyncCheckpointer, load_checkpoint, load_config, prune_epoch_checkpoints,
+    save_checkpoint)
 from mcseg_tpu_torch.utils.logging import JsonlLogger, StepTimer, make_run_logger
 
 
@@ -196,6 +200,48 @@ class GracefulStop:
             signal.signal(sig, h)
 
 
+class _EpochSaver:
+    """The loops' epoch checkpoints: through an ``AsyncCheckpointer`` (the
+    loop steps on while the file is written), or synchronously under
+    ``--sync_checkpoint``; pruning to ``keep_checkpoints`` runs after the
+    write publishes either way. ``close`` waits for pending writes, before
+    the loop writes ``last`` synchronously, so a returned loop leaves a
+    complete run directory."""
+
+    def __init__(self, cfg: ExperimentConfig, out_dir: str):
+        self._cfg, self._out_dir = cfg, out_dir
+        self._async = AsyncCheckpointer() if cfg.train.async_checkpoint else None
+
+    def save_epoch(self, epoch: int, state: MCDTrainState) -> None:
+        prefix = os.path.join(self._out_dir, f"ep{epoch}")
+        prune = functools.partial(prune_epoch_checkpoints, self._out_dir,
+                                  self._cfg.train.keep_checkpoints)
+        if self._async is not None:
+            self._async.save(prefix, state, self._cfg, after=prune)
+        else:
+            save_checkpoint(prefix, state, self._cfg)
+            prune()
+
+    def close(self) -> None:
+        """Wait for pending writes; raise a writer failure."""
+        if self._async is not None:
+            self._async.close()
+
+
+def _input_stream(dataset, dev: torch.device, cfg: ExperimentConfig, start_epoch: int):
+    """The batches of the run on ``dev``: the card-resident corpus when
+    ``--device_corpus`` resolves on (decoded once, gathered by index),
+    else host decode on ``num_workers`` threads with prefetch to the
+    device. Both yield the same tensors for a seed."""
+    bs, seed, epochs = cfg.data.batch_size, cfg.train.seed, cfg.train.epochs
+    if resolve_device_corpus(cfg.data, dataset):
+        return corpus_stream(dataset, dev, bs, seed=seed, epochs=epochs,
+                             start_epoch=start_epoch)
+    return device_prefetch(
+        batch_iterator(dataset, bs, seed=seed, epochs=epochs, start_epoch=start_epoch,
+                       num_workers=cfg.data.num_workers), dev)
+
+
 # Checkpoint fields that determine the model and optimizer structure:
 # resuming with another value would restore the weights into another
 # architecture, so the loops compare them before any state is built.
@@ -257,10 +303,10 @@ def _train_loop(cfg: ExperimentConfig, dataset, iterate: Callable,
                 logger: Optional[JsonlLogger], max_iterations: Optional[int],
                 on_epoch_end: Optional[Callable], dev: torch.device,
                 aux_heads: Sequence[str] = ()) -> MCDTrainState:
-    """The loop the trainers share: ``iterate(state, *raw_batches)`` on
-    each item of the seeded batch stream of ``dataset`` (a pair of batches
-    for a ZipDataset), moved to ``dev`` first; the state carries the
-    auxiliary heads ``aux_heads``."""
+    """The loop the trainers share: ``iterate(state, *batches)`` on each
+    item of the input stream of ``dataset`` on ``dev`` (a pair of batches
+    for a ZipDataset); the state carries the auxiliary heads
+    ``aux_heads``."""
     state = _init_or_resume(cfg, dev, aux_heads)
     out_dir = cfg.train.out_dir
     os.makedirs(out_dir, exist_ok=True)
@@ -272,8 +318,8 @@ def _train_loop(cfg: ExperimentConfig, dataset, iterate: Callable,
     # checkpoints fall on epoch boundaries; a mid-epoch step replays its
     # epoch from the start
     start_epoch = step0 // steps_per_epoch if cfg.train.resume else 0
-    stream = batch_iterator(dataset, bs, seed=cfg.train.seed, epochs=cfg.train.epochs,
-                            start_epoch=start_epoch)
+    stream = _input_stream(dataset, dev, cfg, start_epoch)
+    saver = _EpochSaver(cfg, out_dir)
     timer = StepTimer()
     stop = GracefulStop().install(cfg.train.max_hours)
     try:
@@ -281,8 +327,7 @@ def _train_loop(cfg: ExperimentConfig, dataset, iterate: Callable,
             if stop.stop or (i > 0 and stop.expired()) or (
                     max_iterations is not None and i >= max_iterations):
                 break
-            raws = item if isinstance(item, tuple) else (item,)
-            metrics = iterate(state, *(batch_to_device(r, dev) for r in raws))
+            metrics = iterate(state, *(item if isinstance(item, tuple) else (item,)))
             timer.tick(bs)
             if i % cfg.train.log_every == 0:
                 check_finite(metrics, step0 + i)
@@ -292,14 +337,15 @@ def _train_loop(cfg: ExperimentConfig, dataset, iterate: Callable,
                 epoch = start_epoch + (i + 1) // steps_per_epoch
                 if (cfg.train.checkpoint_every_epochs > 0
                         and epoch % cfg.train.checkpoint_every_epochs == 0):
-                    save_checkpoint(os.path.join(out_dir, f"ep{epoch}"), state, cfg)
-                    prune_epoch_checkpoints(out_dir, cfg.train.keep_checkpoints)
+                    saver.save_epoch(epoch, state)
                 if on_epoch_end:
                     on_epoch_end(epoch, state)
     finally:
+        stream.close()
         stop.restore()
         if own_logger:
             logger.close()
+        saver.close()
     save_checkpoint(os.path.join(out_dir, "last"), state, cfg)
     return state
 

@@ -13,8 +13,10 @@ atomically (a temporary file, then ``os.replace``), so a prefix always
 names a complete checkpoint. A payload with a "D" is a multitask
 checkpoint, restored into a state with its auxiliary heads, as the JAX
 package detects one. ``prune_epoch_checkpoints`` keeps the newest
-``keep_checkpoints`` epoch checkpoints, as the JAX loops do. Conversion to
-and from the JAX msgpack payload comes in a later slice.
+``keep_checkpoints`` epoch checkpoints, as the JAX loops do.
+``AsyncCheckpointer`` copies the state to host memory on the caller's
+thread and writes it on a background thread. Conversion to and from the
+JAX msgpack payload comes in a later slice.
 """
 
 from __future__ import annotations
@@ -22,8 +24,10 @@ from __future__ import annotations
 import glob
 import json
 import os
+import queue
 import re
-from typing import List, Optional, Tuple
+import threading
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -38,25 +42,106 @@ def _publish(path: str, write) -> None:
     os.replace(tmp, path)
 
 
-def save_checkpoint(prefix: str, state: MCDTrainState, config: ExperimentConfig) -> str:
-    """Write <prefix>.pt and <prefix>.config.json; returns the .pt path."""
-    os.makedirs(os.path.dirname(prefix) or ".", exist_ok=True)
-    payload = {
+def _payload(state: MCDTrainState) -> dict:
+    """The checkpoint's tensors and step, by reference to the live state."""
+    return {
         "step": state.step,
         **state.params(),
         "opt_g": state.opt_g.state_dict(),
         "opt_f": state.opt_f.state_dict(),
         "gen": state.gen.get_state(),
     }
+
+
+def _write(prefix: str, payload: dict, config_dict: dict) -> str:
+    os.makedirs(os.path.dirname(prefix) or ".", exist_ok=True)
     path = prefix + ".pt"
     _publish(path, lambda p: torch.save(payload, p))
 
     def write_config(p):
         with open(p, "w") as f:
-            json.dump(config.to_dict(), f, indent=2, sort_keys=True, default=str)
+            json.dump(config_dict, f, indent=2, sort_keys=True, default=str)
 
     _publish(prefix + ".config.json", write_config)
     return path
+
+
+def save_checkpoint(prefix: str, state: MCDTrainState, config: ExperimentConfig) -> str:
+    """Write <prefix>.pt and <prefix>.config.json; returns the .pt path."""
+    return _write(prefix, _payload(state), config.to_dict())
+
+
+def _host_copy(obj):
+    """``obj`` with every tensor replaced by a copy in host memory: the
+    optimizers update the parameters in place, so a reference would let
+    the next step reach a checkpoint still being written."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _host_copy(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_host_copy(v) for v in obj)
+    return obj
+
+
+class AsyncCheckpointer:
+    """Checkpoint writes that overlap training.
+
+    ``save`` copies the state to host memory on the caller's thread (the
+    only part that waits for the device) and hands serialization and the
+    atomic file writes to one writer thread. Writes publish in submission
+    order; at most one copy waits while one is written, so a slow disk
+    holds the loop back instead of growing memory. A failure of the writer
+    is raised again, as RuntimeError, by the next ``save`` or by ``join``.
+    ``after`` runs on the writer thread once its checkpoint has published
+    (epoch pruning then sees the file it accompanies)."""
+
+    def __init__(self):
+        self._q: "queue.Queue" = queue.Queue(maxsize=1)
+        self._err: Optional[BaseException] = None
+        self._lock = threading.Lock()
+        self._thread = threading.Thread(target=self._run, name="mcseg-ckpt-writer",
+                                        daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while True:
+            job = self._q.get()
+            try:
+                if job is None:
+                    return
+                prefix, payload, config_dict, after = job
+                _write(prefix, payload, config_dict)
+                if after is not None:
+                    after()
+            except Exception as e:  # raised again by the next save()/join()
+                with self._lock:
+                    self._err = e
+            finally:
+                self._q.task_done()
+
+    def _raise_pending(self):
+        with self._lock:
+            err, self._err = self._err, None
+        if err is not None:
+            raise RuntimeError("async checkpoint write failed") from err
+
+    def save(self, prefix: str, state: MCDTrainState, config: ExperimentConfig,
+             after: Optional[Callable[[], object]] = None) -> None:
+        """Copy the state to host memory now; write it in the background."""
+        self._raise_pending()
+        self._q.put((prefix, _host_copy(_payload(state)), config.to_dict(), after))
+
+    def join(self) -> None:
+        """Wait until every accepted write has published; raise a writer
+        failure."""
+        self._q.join()
+        self._raise_pending()
+
+    def close(self) -> None:
+        self.join()
+        self._q.put(None)
+        self._thread.join()
 
 
 def prune_epoch_checkpoints(out_dir: str, keep: int) -> List[str]:

@@ -17,7 +17,7 @@ import torch
 
 from mcseg_tpu_torch.ops.normalize import fused_normalize_stack, normalize_stack_reference
 
-E_CH = {3: 0, 6: 3, 4: 1, 1: 1}
+E_CH = {3: 0, 6: 3, 4: 1, 1: 1, 7: 4}
 # longer than one block's staging (48 KB of shared memory) in every instance:
 # the longest segment, input_ch 1 with bf16 out, holds 8176 pixels
 LONG_W = 8237
@@ -67,7 +67,7 @@ def _assert_kernel_matches(rgb, extra, flip, input_ch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("w", [640, 300, 37, 16, 1])
-@pytest.mark.parametrize("input_ch", [3, 6, 4, 1])
+@pytest.mark.parametrize("input_ch", [3, 6, 4, 1, 7])
 @pytest.mark.parametrize("rgb_float", [False, True])
 def test_normalize_stack_kernel_matches_plain_version(cuda_device, input_ch, rgb_float, w):
     # odd H; ragged and unaligned rows at W 300, 37 and 1
@@ -80,7 +80,7 @@ def test_normalize_stack_kernel_matches_plain_version(cuda_device, input_ch, rgb
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("w", [640, 37])
-@pytest.mark.parametrize("input_ch", [3, 6, 4, 1])
+@pytest.mark.parametrize("input_ch", [3, 6, 4, 1, 7])
 @pytest.mark.parametrize("rgb_float", [False, True])
 def test_normalize_stack_kernel_unaligned_inputs(cuda_device, input_ch, rgb_float, w):
     # uint8 RGB 1 byte into its buffer, float RGB and the extra planes 4 bytes
@@ -94,7 +94,7 @@ def test_normalize_stack_kernel_unaligned_inputs(cuda_device, input_ch, rgb_floa
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("input_ch", [3, 6, 4, 1])
+@pytest.mark.parametrize("input_ch", [3, 6, 4, 1, 7])
 @pytest.mark.parametrize("rgb_float", [False, True])
 def test_normalize_stack_kernel_rows_longer_than_staging(cuda_device, input_ch, rgb_float):
     rng = np.random.RandomState(6)
@@ -104,7 +104,7 @@ def test_normalize_stack_kernel_rows_longer_than_staging(cuda_device, input_ch, 
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("input_ch", [3, 6, 4, 1])
+@pytest.mark.parametrize("input_ch", [3, 6, 4, 1, 7])
 @pytest.mark.parametrize("rgb_float", [False, True])
 def test_normalize_stack_kernel_many_rows_per_block(cuda_device, input_ch, rgb_float):
     # short rows: a block stages several whole rows, flipped row by row; the
@@ -122,3 +122,34 @@ def test_normalize_stack_kernel_rejects_non_contiguous(cuda_device):
     flip = torch.zeros(2, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError):
         fused_normalize_stack(rgb, extra, flip, 6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_workers", [0, 2])
+def test_device_prefetch_on_the_card_yields_the_host_batches(cuda_device, num_workers):
+    """Each prefetched pair equals the host pair in wire format. The consumer
+    reads every tensor behind a sleep on its own stream and drops it at
+    once, so a buffer handed out again under a running copy (no event wait
+    or no record_stream) would change the sums."""
+    from mcseg_tpu_torch.core.config import DataConfig
+    from mcseg_tpu_torch.data.datasets import (
+        SyntheticDataset, SyntheticShiftedDataset, ZipDataset)
+    from mcseg_tpu_torch.data.pipeline import batch_iterator, device_prefetch, wire_items
+
+    cfg = DataConfig(train_img_shape=(320, 240), max_samples=16)
+    z = ZipDataset(SyntheticDataset(cfg), SyntheticShiftedDataset(cfg))
+    want = [wire_items(item) for item in batch_iterator(z, 4, seed=3, epochs=3)]
+    sums = []
+    stream = device_prefetch(batch_iterator(z, 4, seed=3, epochs=3, num_workers=num_workers),
+                             cuda_device, depth=2)
+    for pair in stream:
+        torch.cuda._sleep(2_000_000)
+        sums.append([{k: t.double().sum() for k, t in b.items()} for b in pair])
+        del pair
+    torch.cuda.synchronize()
+    assert len(sums) == len(want) == 12
+    for got, host in zip(sums, want):
+        for g, h in zip(got, host):
+            assert g.keys() == h.keys() and "label" in host[0] and "label" not in host[1]
+            for k in h:
+                assert float(g[k]) == float(h[k].astype(np.float64).sum()), k

@@ -69,7 +69,13 @@ def test_extra_channels_preference_and_refusals():
                                   _extra_channels({"depth": torch.as_tensor(s["depth"]["depth"])}, 4))
     with pytest.raises(ValueError, match="needs 'depth', 'hha', 'ir' or 'boundary'"):
         _extra_channels({"image": torch.zeros(1, 2, 2, 3)}, 4)
-    with pytest.raises(ValueError, match="Queue 1 item 6"):
+    # input_ch 7: the precomputed HHA planes and the binarized boundary, as JAX's
+    seven = {**s["hha"], **s["boundary"]}
+    want = np.asarray(jax_extra_channels({k: jnp.asarray(v) for k, v in seven.items()}, 7))
+    got = _extra_channels({k: torch.as_tensor(v) for k, v in seven.items()}, 7)
+    assert tuple(got.shape) == want.shape == (3, 10, 12, 4)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-7, atol=0)
+    with pytest.raises(ValueError, match="input_ch=7 needs 'boundary'"):
         _extra_channels({"hha": torch.zeros(1, 2, 2, 3)}, 7)
 
 

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``mcseg_tpu_torch``
 (the command-line entry points and their console-script shims included)
-loads neither ``jax`` nor ``mcseg_tpu``, and its entry points (serving,
+loads neither ``jax`` nor ``mcseg_tpu``, nor PIL (the readers import it
+only on their fallback route), builds nothing, and its entry points (serving,
 evaluation, the three trainers, the five commands) refuse to run on a CUDA device
 that is not there (no silent CPU fallback).
 
@@ -22,13 +23,17 @@ mods = [m.name for m in pkgutil.walk_packages(mcseg_tpu_torch.__path__, "mcseg_t
 for m in mods:
     importlib.import_module(m)
 leaked = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "mcseg_tpu"))
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "mcseg_tpu", "PIL"))
 assert not leaked, leaked
-assert len(mods) >= 35, mods
+from mcseg_tpu_torch import native
+assert native.build_report() == {}, native.build_report()  # nothing built at import
+assert len(mods) >= 38, mods
 assert {"mcseg_tpu_torch._scripts", "mcseg_tpu_torch.cli.adapt_train",
         "mcseg_tpu_torch.cli.adapt_test", "mcseg_tpu_torch.cli.source_train",
         "mcseg_tpu_torch.cli.source_test", "mcseg_tpu_torch.cli.multitask_train",
-        "mcseg_tpu_torch.train.multitask", "mcseg_tpu_torch.eval.depth_metrics"} <= set(mods), mods
+        "mcseg_tpu_torch.train.multitask", "mcseg_tpu_torch.eval.depth_metrics",
+        "mcseg_tpu_torch.native", "mcseg_tpu_torch.data.disk_cache",
+        "mcseg_tpu_torch.data.device_corpus"} <= set(mods), mods
 
 from mcseg_tpu_torch.core.config import DataConfig, ExperimentConfig, ModelConfig
 from mcseg_tpu_torch.eval.serving import make_serve_fn
