@@ -21,8 +21,14 @@ side of a real run (phase ``corpus``): it writes on-disk corpora with its
 own PNG writer, measures host decode against the card's rate, and trains
 from the files through decode threads and prefetch, the card-resident
 corpus and the disk cache, with an async epoch checkpoint, an
-``--input_ch 7`` iteration and a ``--submit_dir`` run; and it checks that
-each path launched the kernels. Every phase prints one JSON line
+``--input_ch 7`` iteration and a ``--submit_dir`` run; then the deployment
+path (phase ``deploy``): the serving model exported with ``torch.export``
+at batch 8 and 1, each artifact loaded in a fresh process, the batch-8
+artifact held against in-process serving and timed beside it, the kernel
+counted and profiled inside the artifact, ``bench_serving``, one HTTP
+round trip through ``serve_http``, the tester's ``--outdir --saves_prob``
+dumps and a ``--tb_dir`` iteration; and it checks that each path launched
+the kernels. Every phase prints one JSON line
 and any failure raises (exit code != 0), a ptxas spill included. Kernel
 times are L2-cold, as the serving path finds its inputs: each timing
 rotates over input sets that together move 3x the 50 MB L2, and a reading
@@ -1691,6 +1697,314 @@ def phase_corpus(smi_line, staged_ms=None):
     return launches
 
 
+DEPLOY_TIMED = 5  # artifact and in-process requests timed, each
+# the batch-8 artifact against in-process serving, bf16: exact. Both run
+# the same kernels in the same order; the first card run (H100 80GB HBM3,
+# 700 W) found them equal, so the bounds first set (0.999 of the class-map
+# pixels, 2e-2 of probability) were tightened to equality.
+DEPLOY_PRED_AGREE_MIN, DEPLOY_PROB_DIFF_MAX = 1.0, 0.0
+
+_FRESH_LOAD = r"""
+import json, sys, time
+import numpy as np
+t0 = time.perf_counter()
+from mcseg_tpu_torch.eval.serving import load_serving
+call = load_serving(sys.argv[1])
+t1 = time.perf_counter()
+out = call(dict(np.load(sys.argv[2])))
+out = out if isinstance(out, tuple) else (out,)
+arrays = {name: o.cpu().numpy() for name, o in zip(call.manifest["outputs"], out)}
+t2 = time.perf_counter()
+np.savez(sys.argv[3], **arrays)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "mcseg_tpu"))
+print(json.dumps({"import_and_load_s": t1 - t0, "first_call_s": t2 - t1, "leaked": leaked}))
+"""
+
+
+def _timed_ms(fn, n):
+    """Host-clock ms of each of ``n`` calls, each ended by a synchronize."""
+    import torch
+
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _profile_request(fn, top=6):
+    """One call of ``fn`` under ``torch.profiler``: wall ms, the card's busy
+    ms (kernel and copy rows), its idle share, the kernel count, the rows
+    of the normalize kernel and ``top`` rows by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [r for r in prof.key_averages()
+            if r.device_type == torch.autograd.DeviceType.CUDA and r.self_device_time_total > 0]
+    busy_ms = sum(r.self_device_time_total for r in rows) / 1e3
+    rows.sort(key=lambda r: r.self_device_time_total, reverse=True)
+    as_dict = lambda r: {"name": r.key[:160], "calls": r.count,  # noqa: E731
+                         "ms": r.self_device_time_total / 1e3}
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms, "kernel_rows": len(rows),
+            "kernel_calls": sum(r.count for r in rows),
+            "normalize_kernel": [as_dict(r) for r in rows if "normalize_stack_kernel" in r.key],
+            "top": [as_dict(r) for r in rows[:top]]}
+
+
+def _http_round_trip(path, call1, request):
+    """POST /predict of row 0 of ``request`` (RGB PNG and 16-bit mm depth
+    PNG) to ``serve_http`` around the batch-1 artifact at ``path``, twice
+    (the server's first request also sets up the card's handles on its
+    thread); each class map against the artifact's (``call1``) on the
+    planes as the server decodes them."""
+    import base64
+    import io
+    import threading
+    import urllib.request
+
+    import numpy as np
+    from PIL import Image  # the server's geometry check needs it too
+
+    from mcseg_tpu_torch.data.transforms import encode_png
+    from mcseg_tpu_torch.native import routes
+    from mcseg_tpu_torch.tools import serve_http
+
+    planes = {"image": base64.b64encode(encode_png(request["image"][0])).decode(),
+              "depth": base64.b64encode(encode_png(
+                  np.round(request["depth"][0] * 1000.0).astype(np.uint16))).decode()}
+    body = json.dumps(planes).encode()
+    srv = serve_http.make_server(path, port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    before = dict(routes)
+    trips = []
+    try:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{srv.server_address[1]}/predict", data=body,
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                resp = json.loads(r.read())
+            trips.append(((time.perf_counter() - t0) * 1e3, resp))
+        by_route = {k: routes[k] - before[k] for k in routes}
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+    decoded = {k: serve_http._decode_plane(v, k, H, W)[None] for k, v in planes.items()}
+    want = call1(decoded).cpu().numpy()[0]
+    for _, resp in trips:
+        got = np.asarray(Image.open(io.BytesIO(base64.b64decode(resp["pred_png"]))))
+        if got.shape != (H, W) or not np.array_equal(got, want.astype(np.uint8)):
+            raise AssertionError(f"HTTP class map differs from the artifact's on "
+                                 f"{int((got != want).sum())} pixels")
+    return {"ms_first": trips[0][0], "ms_second": trips[1][0],
+            "decode_route": serve_http.decode_route(), "decoded_by_route": by_route,
+            "shape": trips[1][1]["shape"], "classes": len(trips[1][1]["classes"]),
+            "body_bytes": len(body)}
+
+
+def phase_deploy(smi_line):
+    """The deployment path on the card, BASELINE config 4's serving model
+    (DRN-D-38, RGB+HHA from raw depth, 40 classes, 640x480, bf16, random
+    weights from generator seed 0): ``export_serving`` at batch 8 with
+    probabilities and at batch 1; each artifact loaded in a fresh
+    ``python3`` by ``load_serving`` alone and run once; the batch-8 artifact
+    against in-process ``make_serve_fn`` on one request (class-map share
+    and largest probability difference); the kernel's launches inside the
+    artifact (exactly one per request) and its name among one profiled
+    request's kernels; ms per request, artifact and in-process in turns,
+    and batch-1 latency; ``bench_serving`` at its default batch 24; one
+    HTTP ``/predict`` round trip; ``adapt_test --outdir --saves_prob`` over
+    one batch of the model's checkpoint; one ``adapt_train --tb_dir``
+    iteration. Everything it writes is under build/deploy_* and removed at
+    the end."""
+    import contextlib
+    import glob
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mcseg_tpu_torch.cli import adapt_test, adapt_train
+    from mcseg_tpu_torch.data.datasets import get_dataset, stack_samples
+    from mcseg_tpu_torch.eval.serving import export_serving, load_serving, make_serve_fn
+    from mcseg_tpu_torch.models.factory import init_models
+    from mcseg_tpu_torch.ops.normalize import fused_normalize_stack
+    from mcseg_tpu_torch.tools import bench_serving
+    from mcseg_tpu_torch.train.state import create_train_state
+    from mcseg_tpu_torch.utils.checkpoint import save_checkpoint
+
+    t_phase = time.perf_counter()
+    cfg = _serve_config("bfloat16")
+    params = init_models(cfg.model, torch.Generator().manual_seed(0))
+    ds = get_dataset("synthetic_shifted", cfg.data, "val")
+    raw = stack_samples(ds, range(B))
+    request = {"image": raw["image"], "depth": raw["depth"]}
+    request1 = {k: v[:1] for k, v in request.items()}
+    report = {}
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build"), prefix="deploy_") as tmp:
+        # (a) the two artifacts
+        paths = {"b8": os.path.join(tmp, "m.pt2.b8"), "b1": os.path.join(tmp, "m.pt2.b1")}
+        manifests = {}
+        for name, b, probs in (("b8", B, True), ("b1", 1, False)):
+            t0 = time.perf_counter()
+            manifests[name] = export_serving(cfg, params, paths[name], batch=b, device=DEVICE,
+                                             with_probs=probs)
+            report[f"export_{name}_s"] = time.perf_counter() - t0
+            spec = manifests[name]["input_spec"]
+            if spec != {"image": {"shape": [b, H, W, 3], "dtype": "uint8"},
+                        "depth": {"shape": [b, H, W], "dtype": "float32"}}:
+                raise AssertionError(f"artifact {name} input spec {spec}")
+        report["artifact_bytes"] = {k: m["bytes"] for k, m in manifests.items()}
+        report["outputs_b8"] = manifests["b8"]["outputs"]
+
+        # (c) the batch-8 artifact against in-process serving on one request
+        call8, call1 = load_serving(paths["b8"]), load_serving(paths["b1"])
+        live = make_serve_fn(cfg, params, device=DEVICE, with_probs=True)
+        a_pred, a_probs = call8(request)
+        l_pred, l_probs = live(request)
+        if tuple(a_pred.shape) != (B, H, W) or a_pred.dtype != torch.int32 \
+                or tuple(a_probs.shape) != (B, H, W, cfg.model.n_class):
+            raise AssertionError(f"artifact outputs {a_pred.shape} {a_pred.dtype} {a_probs.shape}")
+        agree = float((a_pred == l_pred).float().mean())
+        prob_diff = float((a_probs - l_probs).abs().max())
+        report.update(pred_agree_artifact_vs_live=agree, max_prob_diff_artifact_vs_live=prob_diff,
+                      artifact_equals_live=agree == 1.0 and prob_diff == 0.0)
+        if agree < DEPLOY_PRED_AGREE_MIN or prob_diff > DEPLOY_PROB_DIFF_MAX:
+            raise AssertionError(f"artifact vs in-process: class maps agree on {agree}, "
+                                 f"probabilities differ by up to {prob_diff}")
+
+        # (b) each artifact in a fresh python3 that loads it through load_serving alone
+        fresh = {}
+        for name, req in (("b8", request), ("b1", request1)):
+            np.savez(os.path.join(tmp, f"req_{name}.npz"), **req)
+            out_npz = os.path.join(tmp, f"out_{name}.npz")
+            proc = subprocess.run(
+                [sys.executable, "-c", _FRESH_LOAD, paths[name],
+                 os.path.join(tmp, f"req_{name}.npz"), out_npz],
+                cwd=HERE, capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"fresh load of {name}: rc {proc.returncode}\n"
+                                     f"{proc.stderr[-3000:]}")
+            info = json.loads(proc.stdout.strip().splitlines()[-1])
+            if info["leaked"]:
+                raise AssertionError(f"fresh load of {name} imported {info['leaked']}")
+            got = np.load(out_npz)["pred"]
+            want = (a_pred if name == "b8" else call1(request1)).cpu().numpy()
+            info["pred_agree_with_this_process"] = float((got == want).mean())
+            if got.shape != want.shape or info["pred_agree_with_this_process"] < 0.999:
+                raise AssertionError(f"fresh load of {name}: {got.shape}, agree "
+                                     f"{info['pred_agree_with_this_process']}")
+            fresh[name] = info
+        report["fresh_process"] = fresh
+
+        # (d) the kernel runs inside the artifact: one launch per request
+        fused_normalize_stack.launches = 0
+        for i in range(3):
+            call8(request)
+            if fused_normalize_stack.launches != i + 1:
+                raise AssertionError(f"artifact request {i}: normalize kernel launched "
+                                     f"{fused_normalize_stack.launches} times in total")
+        artifact_launches = fused_normalize_stack.launches
+        if DEVICE == "cuda":
+            prof = {"artifact": _profile_request(lambda: call8(request)),
+                    "live": _profile_request(lambda: live(request)),
+                    "artifact_b1": _profile_request(lambda: call1(request1))}
+            hits = prof["artifact"]["normalize_kernel"]
+            if len(hits) != 1 or hits[0]["calls"] != 1:
+                raise AssertionError(f"normalize_stack_kernel in the artifact's profile: {hits}")
+            report["profile"] = prof
+
+        # (e) ms per batch-8 request with probabilities, the artifact and
+        # in-process serving (the same work) in turns, then batch-1 latency
+        times = {"live": [], "artifact": []}
+        for order in (("live", "artifact"), ("artifact", "live")):
+            for name in order:
+                fn = (lambda: live(request)) if name == "live" else (lambda: call8(request))
+                times[name] += _timed_ms(fn, DEPLOY_TIMED)
+        report["ms_per_request_b8"] = {k: statistics.median(v) for k, v in times.items()}
+        report["ms_per_request_b8_all"] = times
+        report["artifact_over_live"] = (report["ms_per_request_b8"]["artifact"]
+                                        / report["ms_per_request_b8"]["live"])
+        call1(request1)  # warm-up at batch 1
+        b1 = _timed_ms(lambda: call1(request1), DEPLOY_TIMED)
+        report["ms_per_request_b1"] = statistics.median(b1)
+        report["ms_per_request_b1_all"] = b1
+
+        # (f) the serving bench at its defaults (batch 24)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            report["bench_serving"] = bench_serving.main([], device=DEVICE)
+
+        # (g) one HTTP round trip around the batch-1 artifact
+        report["http"] = _http_round_trip(paths["b1"], call1, request)
+
+        # (h) the tester's dumps through the test command, one batch
+        ckpt = os.path.join(tmp, "ckpt", "last")
+        os.makedirs(os.path.dirname(ckpt))
+        save_checkpoint(ckpt, create_train_state(cfg.model, cfg.train, 0, DEVICE, params=params),
+                        cfg)
+        dump = os.path.join(tmp, "dumps")
+        fused_normalize_stack.launches = 0
+        with contextlib.redirect_stdout(io.StringIO()):
+            miou = adapt_test.main([ckpt, "--outdir", dump, "--saves_prob",
+                                    "--max_samples", str(B)], device=DEVICE)
+        names = sorted(os.listdir(dump))
+        counts = {k: sum(n.endswith(k) for n in names)
+                  for k in ("_label.png", "_color.png", "_prob.npy")}
+        probs = np.load(os.path.join(dump, "000000_prob.npy"))
+        if counts != {k: B for k in counts} or len(names) != 3 * B \
+                or probs.shape != (H, W, cfg.model.n_class) or probs.dtype != np.float16:
+            raise AssertionError(f"dumps {counts}, prob {probs.shape} {probs.dtype}")
+        if fused_normalize_stack.launches != 1 or not np.isfinite(miou):
+            raise AssertionError(f"adapt_test --outdir: {fused_normalize_stack.launches} "
+                                 f"launches, mIoU {miou}")
+        report["dumps"] = {"files": counts, "prob_shape": list(probs.shape),
+                           "prob_dtype": str(probs.dtype), "launches": 1,
+                           "prob_sum_max_err": float(np.abs(
+                               probs.astype(np.float32).sum(-1) - 1).max())}
+
+        # (i) one training iteration with --tb_dir
+        tb_dir, run_dir = os.path.join(tmp, "tb"), os.path.join(tmp, "run")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            adapt_train.main(["synthetic", "synthetic_shifted", "--num_k", "4"]
+                             + _cli_argv(run_dir) + ["--max_samples", str(B),
+                                                     "--tb_dir", tb_dir], device=DEVICE)
+        events = glob.glob(os.path.join(tb_dir, "events.out.tfevents.*"))
+        warning = [ln for ln in out.getvalue().splitlines() if ln.startswith("warning: --tb_dir")]
+        if events and os.path.getsize(events[0]) > 0:
+            report["tb"] = "written"
+        elif warning:
+            report["tb"] = warning[0]
+        else:
+            raise AssertionError(f"--tb_dir wrote no events and no warning:\n"
+                                 f"{out.getvalue()[-2000:]}")
+    report["phase_seconds"] = time.perf_counter() - t_phase
+    emit("deploy", net=cfg.model.net, input_ch=6, n_class=40, batch=B, hw=[H, W],
+         dtype="bfloat16", launches=artifact_launches, card=smi_line,
+         bounds={"pred_agree_min": DEPLOY_PRED_AGREE_MIN,
+                 "prob_diff_max": DEPLOY_PROB_DIFF_MAX},
+         note="random weights; host-clock ms with a synchronize after each request; "
+              "ms_per_request_b8 includes the softmax probabilities on both sides",
+         **report)
+    return artifact_launches
+
+
 def main():
     t_start = time.perf_counter()
     try:
@@ -1717,6 +2031,7 @@ def main():
     cli_launches = phase_cli(smi_line)
     family_launches = phase_families(smi_line)
     corpus_launches = phase_corpus(smi_line, staged_ms)
+    deploy_launches = phase_deploy(smi_line)
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [{
         "name": "fused_normalize_stack", "route": "cuda", "source": KERNEL_SRC,
@@ -1728,6 +2043,7 @@ def main():
         "train_launches": train_launches, "multitask_launches": multitask_launches,
         "cli_launches": cli_launches,
         "family_launches": family_launches, "corpus_launches": corpus_launches,
+        "deploy_launches": deploy_launches,
         "train_case_ms": train_case["kernel_ms"],
         "train_case_share_of_bound": train_case["share_of_bound"],
         "c7_case_ms": c7_case["kernel_ms"], "c7_case_bound_ms": c7_case["bound_ms"],

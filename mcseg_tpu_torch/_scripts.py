@@ -1,7 +1,8 @@
 """Console-script shims of the ``mcseg-torch-*`` commands.
 
 The setuptools wrapper runs ``sys.exit(target())``; the test mains return
-the mIoU, which ``sys.exit`` would print and turn into status 1. Each shim
+the mIoU and the export tool its manifest, which ``sys.exit`` would print
+and turn into status 1. Each shim
 runs its main on the card and exits 0 (argparse errors and exceptions keep
 their own statuses).
 """
@@ -39,6 +40,27 @@ def source_test():
 
 def adapt_test():
     from mcseg_tpu_torch.cli import adapt_test as m
+
+    m.main()
+    return 0
+
+
+def export_serving():
+    from mcseg_tpu_torch.tools import export_serving as m
+
+    m.main()
+    return 0
+
+
+def serve_http():
+    from mcseg_tpu_torch.tools import serve_http as m
+
+    m.main()
+    return 0
+
+
+def bench_serving():
+    from mcseg_tpu_torch.tools import bench_serving as m
 
     m.main()
     return 0

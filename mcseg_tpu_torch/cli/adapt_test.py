@@ -2,7 +2,9 @@
 
 Rebuilds the model from the config stored beside the checkpoint, averages
 the two classifiers unless ``--f1_only``, and prints the per-class IoU
-table; ``--submit_dir`` also writes the Cityscapes submission dumps.
+table; ``--outdir`` also writes label and colour PNGs of every prediction
+(and, with ``--saves_prob``, its float16 softmax), ``--submit_dir`` the
+Cityscapes submission dumps.
 
     python -m mcseg_tpu_torch.cli.adapt_test runs/run0/last nyu
 """
@@ -45,7 +47,8 @@ def main(argv=None, average_classifiers=None, device="cuda"):
     dataset = get_dataset(cfg.data.tgt_dataset, cfg.data, args.split)
     miou, _, _ = evaluate(params, cfg, dataset, device=dev,
                           average_classifiers=average_classifiers,
-                          submit_dir=args.submit_dir)
+                          submit_dir=args.submit_dir, save_dir=args.outdir,
+                          saves_prob=args.saves_prob)
     return miou
 
 

@@ -51,7 +51,7 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--resume", default="", help="checkpoint prefix to resume from")
     p.add_argument("--tb_dir", default="",
-                   help="TensorBoard scalars (not ported: raises)")
+                   help="TensorBoard scalars of the run log (needs tensorboard)")
     p.add_argument("--out_dir", default="./runs/run0")
     p.add_argument("--log_every", type=int, default=50)
     p.add_argument("--checkpoint_every_epochs", type=int, default=1)
@@ -156,12 +156,12 @@ def get_testing_parser(name: str = "test") -> argparse.ArgumentParser:
     p.add_argument("--batch_size", type=int, default=None)
     p.add_argument("--test_img_shape", type=int, nargs=2, default=None)
     p.add_argument("--outdir", default=None,
-                   help="label + colour PNG dumps (not ported: raises)")
+                   help="label + colour PNG dumps of every prediction")
     p.add_argument("--submit_dir", default=None,
                    help="Cityscapes submission dumps: labelId PNGs named "
                         "after their frames")
     p.add_argument("--saves_prob", action="store_true",
-                   help="probability map dumps (not ported: raises)")
+                   help="with --outdir, also float16 probability maps (.npy)")
     p.add_argument("--use_f2", action="store_true",
                    help="average F1 and F2 outputs (adapt_test default; "
                         "opts source_test in)")
@@ -176,9 +176,6 @@ def get_testing_parser(name: str = "test") -> argparse.ArgumentParser:
 
 # flag -> (value that is accepted, the ROADMAP item that ports the flag)
 _UNPORTED = {
-    "tb_dir": ("", "Queue 1 item 9 (run outputs)"),
-    "outdir": (None, "Queue 1 item 9 (run outputs)"),
-    "saves_prob": (False, "Queue 1 item 9 (run outputs)"),
     "multihost": (False, "Queue 1 item 7 (parallelism)"),
     "coordinator": (None, "Queue 1 item 7 (parallelism)"),
     "num_processes": (None, "Queue 1 item 7 (parallelism)"),

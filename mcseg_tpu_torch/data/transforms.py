@@ -1,5 +1,5 @@
 """Normalization constants (torchvision's ImageNet statistics) and the
-prediction dumps.
+prediction dumps (label PNGs and their colour renderings).
 
 HHA is encoded into an image-like [0, 255] range and normalized with the
 RGB constants, as in the reference. ``encode_png`` writes 8-bit RGB, 8-bit
@@ -56,3 +56,19 @@ def save_png(arr: np.ndarray, path: str) -> None:
 def save_label_png(label: np.ndarray, path: str) -> None:
     """A label map as an 8-bit gray PNG."""
     save_png(np.asarray(label).astype(np.uint8), path)
+
+
+def colorize(label: np.ndarray, palette: np.ndarray, ignore: int = 255) -> np.ndarray:
+    """Class-id map -> RGB uint8 through ``palette``; ``ignore`` -> black,
+    other ids clipped to the palette (the reference's ``Colorize``)."""
+    label = np.asarray(label)
+    out = np.zeros((*label.shape, 3), np.uint8)
+    valid = label != ignore
+    clipped = np.clip(label, 0, len(palette) - 1)
+    out[valid] = np.asarray(palette)[clipped[valid]]
+    return out
+
+
+def save_color_png(label: np.ndarray, palette: np.ndarray, path: str) -> None:
+    """A label map as an RGB PNG in the corpus's colours."""
+    save_png(colorize(label, palette), path)

@@ -11,7 +11,8 @@ the batch's depth in metres (``eval.depth_metrics``), the boundary head "B"
 against the edges of the labels, strict and within a tolerance
 (``boundary_match_sums``). With ``submit_dir``, each prediction is also
 written in the corpus's submission format (Cityscapes: labelId PNGs named
-after the source frames).
+after the source frames); with ``save_dir``, as label and colour PNGs (and
+softmax maps with ``saves_prob``).
 """
 
 from __future__ import annotations
@@ -22,13 +23,14 @@ from typing import Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from mcseg_tpu_torch.core.config import ExperimentConfig
 from mcseg_tpu_torch.core.device import compute_context, compute_dtype, resolve_device
 from mcseg_tpu_torch.data.datasets import get_dataset
 from mcseg_tpu_torch.data.labels import IGNORE, get_label_spec, get_submit_table
 from mcseg_tpu_torch.data.pipeline import map_ahead
-from mcseg_tpu_torch.data.transforms import save_label_png
+from mcseg_tpu_torch.data.transforms import save_color_png, save_label_png
 from mcseg_tpu_torch.eval.depth_metrics import depth_metric_sums, finalize_depth_metrics
 from mcseg_tpu_torch.eval.metrics import fast_hist, format_iou_table, miou_from_hist
 from mcseg_tpu_torch.losses.seg import boundary_targets_from_labels
@@ -64,45 +66,66 @@ def batch_to_device(raw_batch, device: torch.device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v).to(device) for k, v in raw_batch.items()}
 
 
-def make_infer_fn(cfg: ExperimentConfig, params: Params, device="cuda",
-                  out_shape: Optional[Tuple[int, int]] = None,
-                  average_classifiers: bool = True):
-    """``infer(raw_batch) -> (logits [B,H,W,n_class], label, feat)``.
+class InferenceCore(nn.Module):
+    """``core(batch) -> (logits [B,H,W,n_class], label, feat)`` on planes
+    already on the device: eval preprocess (with the normalize kernel) ->
+    G -> the head -> resize to ``out_shape``.
 
-    Loads ``params`` onto ``device`` (float32 parameters and BN statistics;
-    bf16 activations through autocast when ``cfg.model.dtype`` is
-    bfloat16). The head is F1 and F2 averaged, or F1 alone when
-    ``average_classifiers`` is False (source-only scoring). Logits are at
-    least float32, resized to ``out_shape`` ((H, W); default: the batch's
-    label resolution). Labels are remapped, int32, or None when the batch
-    has none."""
-    dev = resolve_device(device)
-    dtype = compute_dtype(cfg.model.dtype)
-    param_dtype = torch.float64 if dtype == torch.float64 else torch.float32
-    g, f1, _ = get_models(cfg.model)
-    g.load_state_dict(params["G"])
-    f1.to(param_dtype)
-    f1.load_state_dict(_averaged_head_params(params["F1"], params["F2"], dtype)
-                       if average_classifiers else params["F1"])
-    g, head = (m.to(dev, param_dtype).to(memory_format=torch.channels_last).eval()
-               for m in (g, f1))
-    img_dtype = torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
-    pp = make_eval_preprocess(cfg.data, out_dtype=img_dtype)
+    Holds G and one head in eval mode, channels_last: F1 and F2 averaged,
+    or F1 alone when ``average_classifiers`` is False (source-only
+    scoring), with float32 parameters and BN statistics (float64 under a
+    float64 oracle) and bf16 activations through autocast when
+    ``cfg.model.dtype`` is bfloat16. Logits are at least float32, at
+    ``out_shape`` ((H, W); default: the batch's label resolution). Labels
+    are remapped, int32, or None when the batch has none. ``forward`` does
+    no host copy and sets no grad mode, so ``torch.export`` traces it; the
+    tester and serving both run it."""
 
-    @torch.inference_mode()
-    def infer(raw_batch):
-        img, label = pp(batch_to_device(raw_batch, dev))
+    def __init__(self, cfg: ExperimentConfig, params: Params, device,
+                 out_shape: Optional[Tuple[int, int]] = None,
+                 average_classifiers: bool = True):
+        super().__init__()
+        dev = resolve_device(device)
+        self.dtype = compute_dtype(cfg.model.dtype)
+        param_dtype = torch.float64 if self.dtype == torch.float64 else torch.float32
+        g, f1, _ = get_models(cfg.model)
+        g.load_state_dict(params["G"])
+        f1.to(param_dtype)
+        f1.load_state_dict(_averaged_head_params(params["F1"], params["F2"], self.dtype)
+                           if average_classifiers else params["F1"])
+        self.g, self.head = (m.to(dev, param_dtype).to(memory_format=torch.channels_last).eval()
+                             for m in (g, f1))
+        self.device = dev
+        self.out_shape = out_shape
+        img_dtype = torch.bfloat16 if self.dtype == torch.bfloat16 else torch.float32
+        self.pp = make_eval_preprocess(cfg.data, out_dtype=img_dtype)
+
+    def forward(self, batch: Dict[str, torch.Tensor]):
+        img, label = self.pp(batch)
         # NHWC-contiguous stack == NCHW in channels_last memory: no copy
         x = img.permute(0, 3, 1, 2)
-        if dtype == torch.float64:
+        if self.dtype == torch.float64:
             x = x.to(torch.float64)
-        with compute_context(dtype, dev):
-            feat = g(x)
-            logits = head(feat)
-        oh, ow = out_shape if out_shape is not None else label.shape[1:3]
+        with compute_context(self.dtype, self.device):
+            feat = self.g(x)
+            logits = self.head(feat)
+        oh, ow = self.out_shape if self.out_shape is not None else label.shape[1:3]
         if (oh, ow) != tuple(logits.shape[2:]):
             logits = resize_bilinear_nchw(logits, oh, ow)
         return logits.permute(0, 2, 3, 1), label, feat
+
+
+def make_infer_fn(cfg: ExperimentConfig, params: Params, device="cuda",
+                  out_shape: Optional[Tuple[int, int]] = None,
+                  average_classifiers: bool = True):
+    """``infer(raw_batch) -> (logits [B,H,W,n_class], label, feat)``: the
+    ``InferenceCore`` on ``device`` under ``torch.inference_mode``, fed raw
+    planes (numpy arrays or tensors) copied to the device."""
+    core = InferenceCore(cfg, params, device, out_shape, average_classifiers)
+
+    @torch.inference_mode()
+    def infer(raw_batch):
+        return core(batch_to_device(raw_batch, core.device))
 
     return infer
 
@@ -143,13 +166,16 @@ def boundary_match_sums(b_logits: torch.Tensor, label: torch.Tensor,
 
 def make_eval_step(cfg: ExperimentConfig, params: Params, device="cuda",
                    average_classifiers: bool = True, with_depth: bool = False,
-                   with_boundary: bool = False, boundary_tol: int = 2):
-    """``step(raw_batch) -> (hist [n, n] int64, pred [B,H,W] int32, aux)``,
-    on the device. ``aux`` holds, with ``with_depth``, 'depth': the depth
-    head's ``depth_metric_sums`` against the batch's 'depth' in metres
-    (the prediction resized to its resolution), and with
+                   with_boundary: bool = False, boundary_tol: int = 2,
+                   with_probs: bool = False):
+    """``step(raw_batch) -> (hist [n, n] int64, pred [B,H,W] int32, aux,
+    probs)``, on the device. ``aux`` holds, with ``with_depth``, 'depth':
+    the depth head's ``depth_metric_sums`` against the batch's 'depth' in
+    metres (the prediction resized to its resolution), and with
     ``with_boundary``, 'boundary': ``boundary_match_sums`` of the boundary
-    head (resized to the label resolution) at ``boundary_tol``."""
+    head (resized to the label resolution) at ``boundary_tol``. ``probs``
+    is the softmax of the logits, float32 [B,H,W,n_class], with
+    ``with_probs``, else None."""
     dev = resolve_device(device)
     infer = make_infer_fn(cfg, params, dev, average_classifiers=average_classifiers)
     n_class = cfg.model.n_class
@@ -172,7 +198,8 @@ def make_eval_step(cfg: ExperimentConfig, params: Params, device="cuda",
                 b_logits = b_head(feat)
             aux["boundary"] = boundary_match_sums(resize_to(b_logits, label.shape[1:3]),
                                                   label, boundary_tol)
-        return fast_hist(label, pred, n_class), pred, aux
+        probs = torch.softmax(logits, dim=-1) if with_probs else None
+        return fast_hist(label, pred, n_class), pred, aux, probs
 
     return step
 
@@ -235,7 +262,8 @@ def _submit_names(dataset, n: int):
 def evaluate(params: Params, cfg: ExperimentConfig, dataset=None,
              max_batches: Optional[int] = None, print_table: bool = True,
              device="cuda", average_classifiers: bool = True,
-             num_workers: Optional[int] = None, submit_dir: Optional[str] = None):
+             num_workers: Optional[int] = None, submit_dir: Optional[str] = None,
+             save_dir: Optional[str] = None, saves_prob: bool = False):
     """Score ``params`` on ``dataset`` (default: the config's target corpus,
     val split) with F1 and F2 averaged, or F1 alone when
     ``average_classifiers`` is False. A multitask checkpoint's depth head
@@ -245,7 +273,11 @@ def evaluate(params: Params, cfg: ExperimentConfig, dataset=None,
     every prediction in the corpus's submission format, named after its
     source frame (Cityscapes' labelIds; a corpus without a protocol
     raises); on an unlabeled split the table is meaningless and the dumps
-    exact. Returns (miou, hist int64 [n, n] numpy, table string)."""
+    exact. ``save_dir`` writes each real sample's prediction as
+    ``{idx:06d}_label.png`` (train ids) and ``{idx:06d}_color.png`` (the
+    corpus palette), and with ``saves_prob`` its softmax as
+    ``{idx:06d}_prob.npy``, float16 [H,W,n_class]; padding rows are never
+    dumped. Returns (miou, hist int64 [n, n] numpy, table string)."""
     submit_table = None
     if submit_dir:
         submit_table = get_submit_table(cfg.data.tgt_dataset)
@@ -256,11 +288,14 @@ def evaluate(params: Params, cfg: ExperimentConfig, dataset=None,
         os.makedirs(submit_dir, exist_ok=True)
     dev = resolve_device(device)
     dataset = dataset or get_dataset(cfg.data.tgt_dataset, cfg.data, "val")
-    _, _, names, _ = get_label_spec(cfg.data.tgt_dataset)
+    _, _, names, palette = get_label_spec(cfg.data.tgt_dataset)
+    if save_dir:
+        os.makedirs(save_dir, exist_ok=True)
     with_depth = "D" in params and "depth" in dataset[0]
     tol = 2
     step = make_eval_step(cfg, params, dev, average_classifiers, with_depth=with_depth,
-                          with_boundary="B" in params, boundary_tol=tol)
+                          with_boundary="B" in params, boundary_tol=tol,
+                          with_probs=bool(save_dir) and saves_prob)
     n_class = cfg.model.n_class
     bs = min(cfg.data.batch_size, len(dataset))
     if num_workers is None:
@@ -273,17 +308,27 @@ def evaluate(params: Params, cfg: ExperimentConfig, dataset=None,
         for bi, (raw, n_real) in enumerate(batches):
             if max_batches is not None and bi >= max_batches:
                 break
-            hist, pred, aux = step(raw)
+            hist, pred, aux, probs = step(raw)
             total += hist
             for name, sums in aux.items():
                 acc = aux_total.setdefault(name, {})
                 for k, v in sums.items():
                     acc[k] = acc.get(k, 0) + v.double()
-            if submit_table is not None:
+            if save_dir or submit_table is not None:
                 pred_np = pred.cpu().numpy()
+                probs_np = (probs[:n_real].to(torch.float16).cpu().numpy()
+                            if probs is not None else None)
                 for k in range(n_real):
-                    save_label_png(submit_table[pred_np[k]],
-                                   os.path.join(submit_dir, dump_names[bi * bs + k]))
+                    idx = bi * bs + k
+                    if save_dir:
+                        save_label_png(pred_np[k], os.path.join(save_dir, f"{idx:06d}_label.png"))
+                        save_color_png(pred_np[k], palette,
+                                       os.path.join(save_dir, f"{idx:06d}_color.png"))
+                        if probs_np is not None:
+                            np.save(os.path.join(save_dir, f"{idx:06d}_prob.npy"), probs_np[k])
+                    if submit_table is not None:
+                        save_label_png(submit_table[pred_np[k]],
+                                       os.path.join(submit_dir, dump_names[idx]))
     finally:
         batches.close()
     total = total.cpu().numpy()

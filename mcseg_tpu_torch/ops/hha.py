@@ -19,6 +19,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 Planes = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # x, y, z as [B, H, W]
@@ -79,6 +80,12 @@ def _normals(points: Planes) -> Planes:
 
 
 GRAVITY_ROUNDS = 3
+# (parallel, perpendicular) angle thresholds of each round in radians, as
+# Python floats rounded to float32 as the JAX version rounds them: nothing
+# in the encoder reads tensor data on the host, so torch.export traces it
+_ANNEAL = (np.linspace(45.0, 15.0, GRAVITY_ROUNDS).astype(np.float32)
+           * np.float32(math.pi) / np.float32(180.0))
+_THRESHOLDS = tuple((float(t), float(np.float32(math.pi / 2) - t)) for t in _ANNEAL)
 
 
 def estimate_gravity(normals: Planes, valid: torch.Tensor) -> torch.Tensor:
@@ -93,7 +100,6 @@ def estimate_gravity(normals: Planes, valid: torch.Tensor) -> torch.Tensor:
     b = nx.shape[0]
     g = torch.tensor([0.0, 1.0, 0.0], device=nx.device).repeat(b, 1)
     w2 = valid.to(torch.float32) ** 2  # (w n)(w n)^T carries w^2
-    thresholds = torch.linspace(45.0, 15.0, GRAVITY_ROUNDS) * math.pi / 180.0
     products = (nx * nx, nx * ny, nx * nz, ny * ny, ny * nz, nz * nz)
 
     def gram(mask):
@@ -103,14 +109,11 @@ def estimate_gravity(normals: Planes, valid: torch.Tensor) -> torch.Tensor:
                             torch.stack([xy, yy, yz], -1),
                             torch.stack([xz, yz, zz], -1)], -2)
 
-    # both thresholds rounded to float32 as the JAX version rounds them
-    perp_thresholds = torch.tensor(math.pi / 2, dtype=torch.float32) - thresholds
-    for i in range(GRAVITY_ROUNDS):
+    for thr, perp_thr in _THRESHOLDS:
         gx, gy, gz = (g[:, k, None, None] for k in range(3))
         cos = torch.abs(nx * gx + ny * gy + nz * gz)
         ang = torch.arccos(cos.clamp(-1.0, 1.0))
-        m = gram((ang < float(thresholds[i])).to(torch.float32)) - gram(
-            (ang > float(perp_thresholds[i])).to(torch.float32))
+        m = gram((ang < thr).to(torch.float32)) - gram((ang > perp_thr).to(torch.float32))
         _, vecs = torch.linalg.eigh(m)  # ascending eigenvalues
         cand = vecs[:, :, -1]
         cand = torch.where((cand * g).sum(-1, keepdim=True) < 0, -cand, cand)

@@ -5,7 +5,12 @@
 hand-written kernel ``csrc/normalize_stack.cu`` (sm_90a, built by nvcc at
 first use); on a CPU tensor it runs the plain version
 ``normalize_stack_reference``. There is no fallback between the two: a CUDA
-call that cannot launch raises.
+call that cannot launch raises. Both are the implementations of one
+registered ``torch.library`` custom op, ``mcseg::normalize_stack``, which
+the dispatcher routes by the tensors' device; its fake (meta) version gives
+``torch.export`` the output's shape and dtype, so an exported serving graph
+holds the op as one node and launches the kernel when it runs. Registering
+the op at import builds nothing.
 
 Per sample, where ``flip[b] > 0`` the inputs are mirrored horizontally;
 RGB (uint8, or float32 already in [0, 1]) is scaled to [0, 1] and stacked
@@ -99,20 +104,18 @@ def _check(rgb, extra01, flip, input_ch, out_dtype):
     return e
 
 
-def fused_normalize_stack(rgb: torch.Tensor, extra01: Optional[torch.Tensor],
-                          flip: torch.Tensor, input_ch: int = 3,
-                          out_dtype=torch.float32) -> torch.Tensor:
-    """[B,H,W,3] RGB (+ [B,H,W,E] float extra) -> [B,H,W,input_ch].
+@torch.library.custom_op("mcseg::normalize_stack", mutates_args=(), device_types="cpu")
+def _normalize_stack_op(rgb: torch.Tensor, extra01: Optional[torch.Tensor],
+                        flip: torch.Tensor, input_ch: int,
+                        out_dtype: torch.dtype) -> torch.Tensor:
+    """The op's CPU implementation: the plain version."""
+    return normalize_stack_reference(rgb, extra01, flip, input_ch, out_dtype)
 
-    CUDA tensors launch the kernel (``fused_normalize_stack.launches`` counts
-    launches); CPU tensors take ``normalize_stack_reference``."""
-    e = _check(rgb, extra01, flip, input_ch, out_dtype)
-    if rgb.device.type == "cpu":
-        return normalize_stack_reference(rgb, extra01 if e else None, flip,
-                                         input_ch, out_dtype)
-    if rgb.device.type != "cuda":
-        raise ValueError(f"no kernel for device {rgb.device}")
-    tensors = [rgb, flip] + ([extra01] if e else [])
+
+@_normalize_stack_op.register_kernel("cuda")
+def _normalize_stack_cuda(rgb, extra01, flip, input_ch, out_dtype):
+    """The op's CUDA implementation: one launch of ``csrc/normalize_stack.cu``."""
+    tensors = [rgb, flip] + ([extra01] if extra01 is not None else [])
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("fused_normalize_stack needs contiguous inputs")
     b, h, w, _ = rgb.shape
@@ -122,8 +125,8 @@ def fused_normalize_stack(rgb: torch.Tensor, extra01: Optional[torch.Tensor],
     with torch.cuda.device(rgb.device):  # launch on the tensors' card
         err = lib.mcseg_normalize_stack(
             rgb.data_ptr(), int(rgb.dtype == torch.float32),
-            extra01.data_ptr() if e else None, flip.data_ptr(), out.data_ptr(),
-            int(out_dtype == torch.bfloat16), b, h, w, input_ch,
+            extra01.data_ptr() if extra01 is not None else None, flip.data_ptr(),
+            out.data_ptr(), int(out_dtype == torch.bfloat16), b, h, w, input_ch,
             mean.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
             std.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
             torch.cuda.current_stream(rgb.device).cuda_stream)
@@ -131,6 +134,27 @@ def fused_normalize_stack(rgb: torch.Tensor, extra01: Optional[torch.Tensor],
         raise RuntimeError(f"normalize_stack kernel launch failed: CUDA error {err}")
     fused_normalize_stack.launches += 1
     return out
+
+
+@_normalize_stack_op.register_fake
+def _normalize_stack_fake(rgb, extra01, flip, input_ch, out_dtype):
+    b, h, w, _ = rgb.shape
+    return rgb.new_empty((b, h, w, input_ch), dtype=out_dtype)
+
+
+def fused_normalize_stack(rgb: torch.Tensor, extra01: Optional[torch.Tensor],
+                          flip: torch.Tensor, input_ch: int = 3,
+                          out_dtype=torch.float32) -> torch.Tensor:
+    """[B,H,W,3] RGB (+ [B,H,W,E] float extra) -> [B,H,W,input_ch].
+
+    Validates, then calls ``mcseg::normalize_stack``: CUDA tensors launch
+    the kernel (``fused_normalize_stack.launches`` counts launches, those
+    of an exported graph too); CPU tensors take
+    ``normalize_stack_reference``."""
+    e = _check(rgb, extra01, flip, input_ch, out_dtype)
+    if rgb.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {rgb.device}")
+    return _normalize_stack_op(rgb, extra01 if e else None, flip, input_ch, out_dtype)
 
 
 fused_normalize_stack.launches = 0

@@ -1,8 +1,8 @@
 """Structured training logs and a throughput meter.
 
 The port of the JAX package's ``utils/logging.py``: a JSONL step log plus
-stdout lines, and a StepTimer whose rate leaves out the first (warm-up)
-steps. TensorBoard output is not ported.
+stdout lines, optionally a TensorBoard event stream, and a StepTimer whose
+rate leaves out the first (warm-up) steps.
 """
 
 from __future__ import annotations
@@ -14,26 +14,47 @@ from typing import Any, Dict, Optional
 
 
 def make_run_logger(train_cfg) -> "JsonlLogger":
-    """The run directory's log: ``<out_dir>/train_log.jsonl``."""
-    return JsonlLogger(path=os.path.join(train_cfg.out_dir, "train_log.jsonl"))
+    """The run directory's log: ``<out_dir>/train_log.jsonl``, plus
+    TensorBoard scalars under ``train_cfg.tb_dir`` when it is set."""
+    return JsonlLogger(path=os.path.join(train_cfg.out_dir, "train_log.jsonl"),
+                       tb_dir=train_cfg.tb_dir or None)
 
 
 class JsonlLogger:
-    """One JSON object per record, appended to ``path``, echoed to stdout."""
+    """One JSON object per record, appended to ``path``, echoed to stdout.
 
-    def __init__(self, path: Optional[str] = None, echo: bool = True):
+    ``tb_dir`` also writes every float of a record as a TensorBoard scalar
+    at the record's "step" (``torch.utils.tensorboard``, imported only
+    then); without the ``tensorboard`` package it warns and goes on."""
+
+    def __init__(self, path: Optional[str] = None, echo: bool = True,
+                 tb_dir: Optional[str] = None):
         self.path = path
         self.echo = echo
         self._f = None
         if path:
             os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
             self._f = open(path, "a")
+        self._tb = None
+        if tb_dir:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:
+                print(f"warning: --tb_dir {tb_dir!r} ignored (no tensorboard)")
+            else:
+                self._tb = SummaryWriter(tb_dir)
 
     def log(self, record: Dict[str, Any]) -> None:
         record = {k: (v.item() if hasattr(v, "item") else v) for k, v in record.items()}
         if self._f:
             self._f.write(json.dumps(record) + "\n")
             self._f.flush()
+        if self._tb is not None:
+            step = int(record.get("step", 0))
+            for k, v in record.items():
+                if isinstance(v, float) and k != "step":
+                    self._tb.add_scalar(k, v, global_step=step)
+            self._tb.flush()
         if self.echo:
             parts = [f"{k}={v:.5g}" if isinstance(v, float) else f"{k}={v}"
                      for k, v in record.items()]
@@ -43,6 +64,9 @@ class JsonlLogger:
         if self._f:
             self._f.close()
             self._f = None
+        if self._tb is not None:
+            self._tb.close()
+            self._tb = None
 
 
 class StepTimer:

@@ -90,16 +90,11 @@ def test_testing_parser_and_bad_choices_match_jax():
 
 
 @pytest.mark.parametrize("main,argv", [
-    (adapt_train.main, "synthetic synthetic_shifted --tb_dir tb"),
     (adapt_train.main, "synthetic synthetic_shifted --multihost"),
     (source_train.main, "synthetic --coordinator localhost:1234"),
     (source_train.main, "synthetic --num_processes 2"),
     (adapt_train.main, "synthetic synthetic_shifted --process_id 0"),
     (source_train.main, "synthetic --spatial_devices 2"),
-    (adapt_test.main, "ckpt --outdir preds"),
-    # --submit_dir is ported; an unported flag beside it still raises
-    (adapt_test.main, "ckpt --outdir preds --submit_dir submit"),
-    (source_test.main, "ckpt --saves_prob"),
     (source_test.main, "ckpt --all_devices"),
 ], ids=lambda v: v.split()[-1] if isinstance(v, str) else None)
 def test_unported_output_flags_raise(main, argv, tmp_path):
@@ -107,6 +102,52 @@ def test_unported_output_flags_raise(main, argv, tmp_path):
         main(argv.split() + ["--out_dir", str(tmp_path / "run")] if "train" in main.__module__
              else argv.split(), device="cpu")
     assert not os.path.exists(tmp_path / "run")  # refused before anything was written
+
+
+@pytest.fixture(scope="module")
+def small_checkpoint(tmp_path_factory):
+    """An input_ch 4 MCD checkpoint of one iteration (2 val samples)."""
+    run = tmp_path_factory.mktemp("ckpt") / "adapt"
+    _adapt(run, 1)
+    return str(run / "last")
+
+
+def _tb_scalars(tb_dir):
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    (path,) = [os.path.join(tb_dir, f) for f in os.listdir(tb_dir)]
+    acc = EventAccumulator(path)
+    acc.Reload()
+    return {t: [e.step for e in acc.Scalars(t)] for t in acc.Tags()["scalars"]}
+
+
+@pytest.mark.parametrize("case", ["adapt_train --tb_dir", "source_train --tb_dir",
+                                  "adapt_test --outdir", "source_test --outdir --saves_prob"])
+def test_output_flags_write_their_outputs(case, small_checkpoint, tmp_path):
+    """The run-output flags through their command's ``main(..., device="cpu")``:
+    TensorBoard scalars of every logged step, and the tester's dumps of
+    every val sample (2 here), with float16 [H,W,n_class] probabilities
+    only under --saves_prob."""
+    out = str(tmp_path / "out")
+    if case == "adapt_train --tb_dir":
+        _adapt(tmp_path / "run", 1, "--tb_dir", out)
+        assert _tb_scalars(out) == {k: [0] for k in ("loss_source", "loss_b", "loss_dis",
+                                                     "lr", "img_per_sec")}
+    elif case == "source_train --tb_dir":
+        source_train.main(["synthetic", "--input_ch", "1", *_argv(tmp_path / "run", 1),
+                           "--tb_dir", out], device="cpu")
+        assert _tb_scalars(out) == {"loss": [0], "lr": [0], "img_per_sec": [0]}
+    else:
+        main = adapt_test.main if case.startswith("adapt") else source_test.main
+        miou = main([small_checkpoint, *case.split()[1:2], out, *case.split()[2:]],
+                    device="cpu")
+        assert np.isfinite(miou)
+        kinds = ["color.png", "label.png"] + (["prob.npy"] if "--saves_prob" in case else [])
+        assert sorted(os.listdir(out)) == [f"{i:06d}_{k}" for i in range(2) for k in kinds]
+        if "--saves_prob" in case:
+            probs = np.load(os.path.join(out, "000000_prob.npy"))
+            assert probs.dtype == np.float16 and probs.shape == (24, 32, 40)
+            np.testing.assert_allclose(probs.astype(np.float32).sum(-1), 1.0, atol=2e-2)
 
 
 @pytest.mark.parametrize("section,name,value", [

@@ -153,3 +153,57 @@ def test_device_prefetch_on_the_card_yields_the_host_batches(cuda_device, num_wo
             assert g.keys() == h.keys() and "label" in host[0] and "label" not in host[1]
             for k in h:
                 assert float(g[k]) == float(h[k].astype(np.float64).sum()), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("input_ch,rgb_float", [(6, False), (6, True), (3, False), (7, True)])
+def test_custom_op_launches_the_kernel_and_matches_plain(cuda_device, input_ch, rgb_float):
+    """``mcseg::normalize_stack`` called directly, as an exported graph
+    calls it: the CUDA implementation launches the kernel once."""
+    rng = np.random.RandomState(7)
+    rgb, extra = _inputs(rng, cuda_device, input_ch, rgb_float, 4, 48, 64)
+    flip = torch.tensor([0, 1, 1, 0], dtype=torch.int32, device=cuda_device)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        before = fused_normalize_stack.launches
+        got = torch.ops.mcseg.normalize_stack(rgb, extra, flip, input_ch, out_dtype)
+        torch.cuda.synchronize()
+        assert fused_normalize_stack.launches == before + 1
+        want = normalize_stack_reference(rgb, extra, flip, input_ch, torch.float32)
+        err = (got.float() - want).abs()
+        if out_dtype == torch.float32:
+            assert float(err.max()) <= 1e-6
+        else:
+            assert bool((err <= want.abs() * 2.0 ** -8).all())
+
+
+@pytest.mark.cuda
+def test_exported_serve_module_launches_the_kernel_per_call(cuda_device, tmp_path):
+    """A small serving artifact exported on the card holds the op as a graph
+    node, launches the kernel once per call after a save/load round trip,
+    and gives the in-process class map."""
+    from mcseg_tpu_torch.core.config import DataConfig, ExperimentConfig, ModelConfig
+    from mcseg_tpu_torch.eval.serving import export_serving, load_serving, make_serve_fn
+    from mcseg_tpu_torch.models.factory import init_models
+
+    cfg = ExperimentConfig(
+        model=ModelConfig(net="drn_d_14", input_ch=6, n_class=8, dtype="float32"),
+        data=DataConfig(src_dataset="synthetic", tgt_dataset="synthetic",
+                        test_img_shape=(64, 48), input_ch=6))
+    params = init_models(cfg.model, torch.Generator().manual_seed(0))
+    path = str(tmp_path / "m.pt2")
+    export_serving(cfg, params, path, batch=2, device="cuda")
+    program = torch.export.load(path)
+    nodes = [n for n in program.graph.nodes if n.op == "call_function"
+             and n.target == torch.ops.mcseg.normalize_stack.default]
+    assert len(nodes) == 1
+    rng = np.random.RandomState(8)
+    request = {"image": rng.randint(0, 256, (2, 48, 64, 3)).astype(np.uint8),
+               "depth": (rng.rand(2, 48, 64) * 4 + 0.5).astype(np.float32)}
+    call = load_serving(path)
+    for i in range(3):
+        before = fused_normalize_stack.launches
+        pred = call(request)
+        torch.cuda.synchronize()
+        assert fused_normalize_stack.launches == before + 1, i
+    live = make_serve_fn(cfg, params, device="cuda")(request)
+    assert float((pred == live).float().mean()) >= 0.999

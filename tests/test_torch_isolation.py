@@ -1,9 +1,10 @@
 """The port stands alone: importing every module of ``mcseg_tpu_torch``
 (the command-line entry points and their console-script shims included)
 loads neither ``jax`` nor ``mcseg_tpu``, nor PIL (the readers import it
-only on their fallback route), builds nothing, and its entry points (serving,
-evaluation, the three trainers, the five commands) refuse to run on a CUDA device
-that is not there (no silent CPU fallback).
+only on their fallback route), builds nothing (registering the normalize
+kernel's custom op included), and its entry points (serving and its export,
+evaluation, the three trainers, the five commands, the serving bench) refuse
+to run on a CUDA device that is not there (no silent CPU fallback).
 
 Runs in a fresh interpreter, since this test process has JAX loaded."""
 
@@ -23,7 +24,8 @@ mods = [m.name for m in pkgutil.walk_packages(mcseg_tpu_torch.__path__, "mcseg_t
 for m in mods:
     importlib.import_module(m)
 leaked = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "mcseg_tpu", "PIL"))
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "mcseg_tpu", "PIL",
+                                         "tensorboard", "msgpack"))
 assert not leaked, leaked
 from mcseg_tpu_torch import native
 assert native.build_report() == {}, native.build_report()  # nothing built at import
@@ -33,10 +35,16 @@ assert {"mcseg_tpu_torch._scripts", "mcseg_tpu_torch.cli.adapt_train",
         "mcseg_tpu_torch.cli.source_test", "mcseg_tpu_torch.cli.multitask_train",
         "mcseg_tpu_torch.train.multitask", "mcseg_tpu_torch.eval.depth_metrics",
         "mcseg_tpu_torch.native", "mcseg_tpu_torch.data.disk_cache",
-        "mcseg_tpu_torch.data.device_corpus"} <= set(mods), mods
+        "mcseg_tpu_torch.data.device_corpus", "mcseg_tpu_torch.eval.serving",
+        "mcseg_tpu_torch.tools.export_serving", "mcseg_tpu_torch.tools.serve_http",
+        "mcseg_tpu_torch.tools.bench_serving"} <= set(mods), mods
+from mcseg_tpu_torch.utils import cuda_build
+assert cuda_build.load.cache_info().currsize == 0  # registering the op built nothing
+assert hasattr(torch.ops.mcseg, "normalize_stack")
 
 from mcseg_tpu_torch.core.config import DataConfig, ExperimentConfig, ModelConfig
-from mcseg_tpu_torch.eval.serving import make_serve_fn
+from mcseg_tpu_torch.eval.serving import export_serving, make_serve_fn
+from mcseg_tpu_torch.tools import bench_serving
 from mcseg_tpu_torch.eval.tester import evaluate
 from mcseg_tpu_torch.models.factory import init_models
 from mcseg_tpu_torch.cli import adapt_test, adapt_train, multitask_train, source_test, source_train
@@ -64,7 +72,9 @@ if not torch.cuda.is_available():
                  lambda: multitask_train.main(["synthetic", "synthetic_shifted",
                                                "--out_dir", "/nonexistent/never_written"]),
                  lambda: adapt_test.main(["/nonexistent/never_read"]),
-                 lambda: source_test.main(["/nonexistent/never_read"])):
+                 lambda: source_test.main(["/nonexistent/never_read"]),
+                 lambda: export_serving(cfg, params, "/nonexistent/never_written"),
+                 lambda: bench_serving.main(["--net", "drn_d_14"])):
         try:
             call()
         except RuntimeError as e:
@@ -91,8 +101,9 @@ def test_torch_console_scripts_resolve():
     block = re.search(r"\[project\.scripts\]\n((?:[^\[\n][^\n]*\n)+)", body).group(1)
     entries = dict(re.findall(r'^(mcseg-torch-[\w-]+) = "([\w.]+:\w+)"', block, re.M))
     assert sorted(entries) == ["mcseg-torch-adapt-test", "mcseg-torch-adapt-train",
-                               "mcseg-torch-multitask-train", "mcseg-torch-source-test",
-                               "mcseg-torch-source-train"]
+                               "mcseg-torch-bench-serving", "mcseg-torch-export-serving",
+                               "mcseg-torch-multitask-train", "mcseg-torch-serve",
+                               "mcseg-torch-source-test", "mcseg-torch-source-train"]
     for script, target in entries.items():
         module, attr = target.split(":")
         assert module == "mcseg_tpu_torch._scripts", script
