@@ -27,7 +27,13 @@ at batch 8 and 1, each artifact loaded in a fresh process, the batch-8
 artifact held against in-process serving and timed beside it, the kernel
 counted and profiled inside the artifact, ``bench_serving``, one HTTP
 round trip through ``serve_http``, the tester's ``--outdir --saves_prob``
-dumps and a ``--tb_dir`` iteration; and it checks that each path launched
+dumps and a ``--tb_dir`` iteration; then checkpoint interop and the result
+tools (phase ``interop``): a reference-format torch checkpoint and a bare
+trunk made from the seed-0 weights imported by ``import_torch``,
+``parity_eval`` on an NYU-layout val split it writes, ``evaluate_preds``
+and ``make_result_sheet`` on the dumps, the state through a JAX
+``.msgpack`` and back, ``adapt_test`` of the ``.msgpack`` prefix and
+``summarize_run`` of a short run; and it checks that each path launched
 the kernels. Every phase prints one JSON line
 and any failure raises (exit code != 0), a ptxas spill included. Kernel
 times are L2-cold, as the serving path finds its inputs: each timing
@@ -2005,6 +2011,239 @@ def phase_deploy(smi_line):
     return artifact_launches
 
 
+INTEROP_VAL_N = 2 * B  # NYU-layout val samples phase ``interop`` writes: 2 eval batches
+
+
+def _reference_keys(sd, fc=False):
+    """``sd`` (a port state dict) under reference-style names, in its own
+    order: ``base.<i>.<leaf>`` per module, as a torch trunk's Sequential
+    names them; a bare ImageNet trunk also carries an ``fc`` head."""
+    import torch
+
+    mods, out = {}, {}
+    for key, t in sd.items():
+        mod, _, leaf = key.rpartition(".")
+        out[f"base.{mods.setdefault(mod, len(mods))}.{leaf}"] = t.clone()
+    if fc:
+        g = torch.Generator().manual_seed(1)
+        out["fc.weight"] = torch.randn(1000, 512, 1, 1, generator=g)
+        out["fc.bias"] = torch.randn(1000, generator=g)
+    return out
+
+
+def _write_nyu_val(root):
+    """An NYU-layout val split of INTEROP_VAL_N samples at H x W, the NYU
+    reader's decode size (RGB, raw label, 16-bit depth in mm), from the
+    port's procedural generator, named ``000000.png``... as the tester
+    names its dumps."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from mcseg_tpu_torch.core.config import DataConfig
+    from mcseg_tpu_torch.data.datasets import get_dataset
+
+    corpus = get_dataset("synthetic_shifted", DataConfig(
+        test_img_shape=(W, H), max_samples=INTEROP_VAL_N), "val")
+
+    def sample(i):
+        s = corpus[i]
+        for sub, arr in (("val_rgb", s["image"]), ("val_label", s["label"]),
+                         ("val_depth", np.round(s["depth"] * 1000.0).astype(np.uint16))):
+            os.makedirs(os.path.join(root, "nyu", sub), exist_ok=True)
+            with open(os.path.join(root, "nyu", sub, f"{i:06d}.png"), "wb") as f:
+                f.write(_png(arr))
+
+    with ThreadPoolExecutor(os.cpu_count() or 4) as ex:
+        list(ex.map(sample, range(INTEROP_VAL_N)))
+
+
+def _equal_params(a, b, what):
+    """Raise unless the two ``{"G", "F1", "F2"...}`` state dicts hold the
+    same tensors bit for bit (flax keeps no ``num_batches_tracked``)."""
+    import torch
+
+    if a.keys() != b.keys():
+        raise AssertionError(f"{what}: modules {sorted(a)} vs {sorted(b)}")
+    n = 0
+    for name in a:
+        keys = [k for k in a[name] if not k.endswith("num_batches_tracked")]
+        if sorted(keys) != sorted(k for k in b[name] if not k.endswith("num_batches_tracked")):
+            raise AssertionError(f"{what}: {name} keys differ")
+        for k in keys:
+            x, y = a[name][k], b[name][k]
+            if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x.cpu(), y.cpu()):
+                raise AssertionError(f"{what}: {name}.{k} differs")
+            n += 1
+    return n
+
+
+def phase_interop(smi_line):
+    """Checkpoint interop and the result tools on the card, BASELINE
+    config 4's model (DRN-D-38, RGB+HHA from raw depth, 40 classes,
+    640x480, batch 8, bf16, seed-0 weights): a reference-format torch
+    checkpoint made from the seed-0 weights (reference-style names,
+    ``g/f1/f2_state_dict``, ``epoch`` 7, the heads' ``up.`` tensors) and a
+    bare 3-channel trunk (with an ImageNet ``fc``) imported by
+    ``import_torch.main``, every tensor held bit for bit against its source
+    and the widened first conv against the RGB mean; ``parity_eval`` of the
+    reference checkpoint on an NYU-layout val split the phase writes (the
+    kernel launched once per eval batch), its ``--outdir`` dumps scored by
+    ``evaluate_preds`` (the tester's mIoU exactly) and tiled by
+    ``make_result_sheet``; the imported state through ``.pt`` ->
+    ``.msgpack`` -> ``.pt`` bit for bit, ``adapt_test`` of the
+    ``.msgpack`` prefix giving the ``.pt`` prefix's class maps exactly;
+    ``summarize_run`` of a 2-iteration ``adapt_train`` run. Everything it
+    writes is under build/interop_* and removed at the end."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mcseg_tpu_torch.cli import adapt_test, adapt_train, evaluate_preds, import_torch
+    from mcseg_tpu_torch.models.factory import init_models, widen_first_conv_params
+    from mcseg_tpu_torch.ops.normalize import fused_normalize_stack
+    from mcseg_tpu_torch.tools import make_result_sheet, parity_eval, summarize_run
+    from mcseg_tpu_torch.utils.checkpoint import (
+        load_checkpoint, load_params, save_checkpoint, save_jax_checkpoint)
+
+    t_phase = time.perf_counter()
+    cfg = _serve_config("bfloat16")
+    params = init_models(cfg.model, torch.Generator().manual_seed(0))
+    cfg3 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, input_ch=3))
+    trunk3 = init_models(cfg3.model, torch.Generator().manual_seed(0))["G"]
+    seconds, report = {}, {}
+    quiet = contextlib.redirect_stdout(io.StringIO())
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build"), prefix="interop_") as tmp:
+        # (a) the two reference checkpoints, imported
+        ref = os.path.join(tmp, "ref.pth.tar")
+        up = torch.zeros(40, 1, 16, 16)  # a reference head's fixed upsample, dropped
+        torch.save({"epoch": 7, "args": {"net": "drn_d_38", "input_ch": 6},
+                    "g_state_dict": _reference_keys(params["G"]),
+                    "f1_state_dict": {**_reference_keys(params["F1"]), "up.weight": up},
+                    "f2_state_dict": {**_reference_keys(params["F2"]), "up.weight": up}}, ref)
+        bare = os.path.join(tmp, "imagenet.pth")
+        torch.save(_reference_keys(trunk3, fc=True), bare)
+        flags = ["--net", cfg.model.net, "--input_ch", "6", "--n_class", "40",
+                 "--dtype", cfg.model.dtype]
+        shape = ["--test_img_shape", *map(str, cfg.data.test_img_shape)]
+        imported = os.path.join(tmp, "imported", "ref")
+        with quiet:
+            timed("import_reference", lambda: import_torch.main(
+                [ref, imported, *flags], device=DEVICE))
+            timed("import_bare_trunk", lambda: import_torch.main(
+                [bare, os.path.join(tmp, "imported", "bare"), *flags], device=DEVICE))
+        got, got_cfg = load_params(imported)
+        report["imported_tensors"] = _equal_params(got, params, "reference import")
+        if got_cfg.model.input_ch != 6 or got_cfg.model.net != cfg.model.net:
+            raise AssertionError(f"imported config {got_cfg.model}")
+        widened, _ = load_params(os.path.join(tmp, "imported", "bare"))
+        k3 = trunk3["conv0.weight"]
+        k6 = widened["G"]["conv0.weight"]
+        mean_err = float((k6[:, 3:] - k3.mean(1, keepdim=True)).abs().max())
+        if not torch.equal(k6[:, :3], k3) or not torch.equal(k6, widen_first_conv_params(k3, 6)) \
+                or mean_err > 1e-6:
+            raise AssertionError(f"widened first conv: RGB slice kept "
+                                 f"{torch.equal(k6[:, :3], k3)}, HHA vs RGB mean {mean_err}")
+        rest = {k: v for k, v in widened["G"].items() if k != "conv0.weight"}
+        report["bare_trunk_tensors"] = 1 + _equal_params(
+            {"G": rest}, {"G": {k: v for k, v in trunk3.items() if k != "conv0.weight"}},
+            "bare trunk import")
+        report["widened_hha_vs_rgb_mean_max_err"] = mean_err
+
+        # (b) parity_eval on a written NYU val split, with --outdir
+        root, dumps = os.path.join(tmp, "corpora"), os.path.join(tmp, "dumps")
+        timed("write_val_split", lambda: _write_nyu_val(root))
+        kept = os.path.join(tmp, "parity", "imported")
+        fused_normalize_stack.launches = 0
+        with quiet:
+            miou = timed("parity_eval", lambda: parity_eval.main(
+                [ref, "--dataset", "nyu", "--data_root", root, *flags, *shape,
+                 "--batch_size", str(B), "--keep_import", kept, "--outdir", dumps],
+                device=DEVICE))
+        interop_launches = fused_normalize_stack.launches
+        n_batches = -(-INTEROP_VAL_N // B)
+        if interop_launches != n_batches or not np.isfinite(miou):
+            raise AssertionError(f"parity_eval: {interop_launches} launches in {n_batches} "
+                                 f"eval batches, mIoU {miou}")
+        report.update(parity_miou=miou, eval_batches=n_batches)
+
+        # (c) evaluate_preds on the dumps, and the result sheets
+        gt = os.path.join(root, "nyu", "val_label")
+        with quiet:
+            scored = timed("evaluate_preds", lambda: evaluate_preds.main(
+                [dumps, gt, "--gt_raw"], device=DEVICE))
+            sheets = timed("make_result_sheet", lambda: make_result_sheet.main(
+                [os.path.join(root, "nyu", "val_rgb"), gt, dumps,
+                 os.path.join(tmp, "sheets"), "--limit", str(INTEROP_VAL_N)]))
+        if scored != miou:
+            raise AssertionError(f"evaluate_preds mIoU {scored} != the tester's {miou}")
+        if len(sheets) != INTEROP_VAL_N:
+            raise AssertionError(f"{len(sheets)} result sheets for {INTEROP_VAL_N} dumps")
+        report.update(evaluate_preds_miou=scored, sheets=len(sheets),
+                      sheet_hw=list(_png_size(sheets[0])))
+
+        # (d) .pt -> .msgpack -> .pt, and the tester on the .msgpack prefix
+        state, state_cfg = load_checkpoint(kept, DEVICE)
+        jax_prefix = os.path.join(tmp, "jax", "last")
+        timed("write_msgpack", lambda: save_jax_checkpoint(jax_prefix, state, state_cfg))
+        back, _ = timed("read_msgpack", lambda: load_checkpoint(jax_prefix, DEVICE))
+        again = os.path.join(tmp, "again", "last")
+        save_checkpoint(again, back, state_cfg)
+        report["round_trip_tensors"] = _equal_params(load_params(again)[0], load_params(kept)[0],
+                                                     ".pt -> .msgpack -> .pt")
+        if back.step != state.step:
+            raise AssertionError(f"round trip step {back.step} != {state.step}")
+        report["checkpoint_bytes"] = {"pt": os.path.getsize(kept + ".pt"),
+                                      "msgpack": os.path.getsize(jax_prefix + ".msgpack")}
+        del state, back
+        jax_dumps = os.path.join(tmp, "jax_dumps")
+        fused_normalize_stack.launches = 0
+        with quiet:
+            jax_miou = timed("adapt_test_msgpack", lambda: adapt_test.main(
+                [jax_prefix, "nyu", "--data_root", root, "--split", "val", *shape,
+                 "--batch_size", str(B), "--outdir", jax_dumps], device=DEVICE))
+        msgpack_launches = fused_normalize_stack.launches
+        labels = sorted(n for n in os.listdir(dumps) if n.endswith("_label.png"))
+        same = [open(os.path.join(dumps, n), "rb").read()
+                == open(os.path.join(jax_dumps, n), "rb").read() for n in labels]
+        if len(labels) != INTEROP_VAL_N or not all(same) or jax_miou != miou \
+                or msgpack_launches != n_batches:
+            raise AssertionError(f"adapt_test of the .msgpack prefix: {sum(same)} of "
+                                 f"{len(labels)} class maps equal, mIoU {jax_miou} vs {miou}, "
+                                 f"{msgpack_launches} launches")
+        report["msgpack_class_maps_equal"] = len(labels)
+
+        # (e) summarize_run of a 2-iteration run
+        run_dir = os.path.join(tmp, "run")
+        with quiet:
+            timed("train_adapt_2_iterations", lambda: adapt_train.main(
+                ["synthetic", "synthetic_shifted", "--num_k", "4"] + _cli_argv(run_dir),
+                device=DEVICE))
+        summary = timed("summarize_run", lambda: summarize_run.summarize(run_dir)).splitlines()
+        if not any(ln.startswith("steps logged: 2 ") for ln in summary) \
+                or f"resume with: --resume {os.path.join(run_dir, 'last')}" not in summary:
+            raise AssertionError("summarize_run:\n" + "\n".join(summary))
+        report["summary_lines"] = len(summary)
+    seconds["phase"] = time.perf_counter() - t_phase
+    emit("interop", net=cfg.model.net, input_ch=6, n_class=40, batch=B, hw=[H, W],
+         dtype=cfg.model.dtype, card=smi_line, interop_launches=interop_launches,
+         step_seconds=seconds, **report)
+    return interop_launches
+
+
 def main():
     t_start = time.perf_counter()
     try:
@@ -2032,6 +2271,7 @@ def main():
     family_launches = phase_families(smi_line)
     corpus_launches = phase_corpus(smi_line, staged_ms)
     deploy_launches = phase_deploy(smi_line)
+    interop_launches = phase_interop(smi_line)
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [{
         "name": "fused_normalize_stack", "route": "cuda", "source": KERNEL_SRC,
@@ -2043,7 +2283,7 @@ def main():
         "train_launches": train_launches, "multitask_launches": multitask_launches,
         "cli_launches": cli_launches,
         "family_launches": family_launches, "corpus_launches": corpus_launches,
-        "deploy_launches": deploy_launches,
+        "deploy_launches": deploy_launches, "interop_launches": interop_launches,
         "train_case_ms": train_case["kernel_ms"],
         "train_case_share_of_bound": train_case["share_of_bound"],
         "c7_case_ms": c7_case["kernel_ms"], "c7_case_bound_ms": c7_case["bound_ms"],

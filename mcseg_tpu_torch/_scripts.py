@@ -64,3 +64,24 @@ def bench_serving():
 
     m.main()
     return 0
+
+
+def evaluate_preds():
+    from mcseg_tpu_torch.cli import evaluate_preds as m
+
+    m.main()
+    return 0
+
+
+def import_torch():
+    from mcseg_tpu_torch.cli import import_torch as m
+
+    m.main()
+    return 0
+
+
+def summarize_run():
+    from mcseg_tpu_torch.tools import summarize_run as m
+
+    m.main()
+    return 0

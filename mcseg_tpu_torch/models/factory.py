@@ -138,3 +138,23 @@ def init_aux_heads(cfg: ModelConfig, keys: Sequence[str], gen: torch.Generator) 
     for head in heads.values():
         _lecun_normal_(head.conv, gen)
     return {k: head.state_dict() for k, head in heads.items()}
+
+
+def widen_first_conv_params(kernel3: torch.Tensor, input_ch: int) -> torch.Tensor:
+    """Widen an OIHW first-conv kernel from 3 input channels to
+    ``input_ch``, as the JAX package's ``widen_first_conv_params`` does on
+    HWIO: the RGB slice keeps its weights and each extra channel (depth,
+    HHA) takes the RGB channel mean, so first activations keep a similar
+    scale; ``input_ch`` 1 takes the channel sum (a grayscale projection)."""
+    ci = kernel3.shape[1]
+    if ci != 3:
+        raise ValueError(f"expected a 3-input-channel kernel, got {ci}")
+    if input_ch == 3:
+        return kernel3
+    # summed left to right, then times 1/3 in the kernel's dtype: the JAX
+    # package's mean, as XLA computes it
+    total = kernel3[:, 0:1] + kernel3[:, 1:2] + kernel3[:, 2:3]
+    if input_ch == 1:
+        return total
+    mean = total * torch.tensor(1.0 / 3.0, dtype=kernel3.dtype)
+    return torch.cat([kernel3, mean.expand(-1, input_ch - 3, -1, -1)], dim=1)

@@ -11,9 +11,16 @@ port's module names, which follow the flax tree:
         ``mean``/``var`` (batch_stats) -> ``running_mean``/``running_var``
 
 It raises on any tensor it cannot place and on any BN that lacks its
-parameters or its statistics. ``params_to_jax`` is its inverse, and
-``opt_state_from_jax`` carries an optax ``trace`` (SGD momentum), a tree
-shaped like the parameters, into ``torch.optim.SGD``'s momentum buffers.
+parameters or its statistics. ``params_to_jax`` is its inverse.
+
+Optimizer state: ``opt_state_from_jax`` carries an optax ``trace`` (SGD
+momentum), a tree shaped like the parameters, into ``torch.optim.SGD``'s
+momentum buffers, and ``adam_state_from_jax`` carries ``scale_by_adam``'s
+``{count, mu, nu}`` into ``torch.optim.Adam``'s ``{step, exp_avg,
+exp_avg_sq}``. ``opt_state_to_jax`` is the inverse of both: it gives the
+optax inner state of the torch optimizer (an SGD buffer torch has not made
+yet is zeros, which is exact: optax's first trace step is ``g + 0.9 * 0``,
+torch's ``clone(g)``).
 """
 
 from __future__ import annotations
@@ -124,6 +131,20 @@ def params_to_jax(params: Mapping[str, Mapping[str, torch.Tensor]]):
     return out_p, out_s
 
 
+def _param_buffers(optimizer: torch.optim.Optimizer, modules: Mapping[str, torch.nn.Module],
+                   trees: Mapping[str, Mapping], name: str) -> None:
+    """Set ``optimizer.state[p][name]`` of every parameter of ``modules``
+    from the parameter-shaped JAX ``trees`` (one per module name)."""
+    for mod_name, module in modules.items():
+        bufs, _ = _param_tensors(trees[mod_name])
+        named = dict(module.named_parameters())
+        if bufs.keys() != named.keys():
+            raise KeyError(f"{mod_name}: optimizer keys {sorted(bufs.keys() ^ named.keys())} "
+                           "do not match the module's parameters")
+        for key, p in named.items():
+            optimizer.state[p][name] = torch.empty_like(p).copy_(bufs[key])
+
+
 @torch.no_grad()
 def opt_state_from_jax(optimizer: torch.optim.Optimizer,
                        modules: Mapping[str, torch.nn.Module],
@@ -133,11 +154,48 @@ def opt_state_from_jax(optimizer: torch.optim.Optimizer,
     the same names, e.g. ``({"G": g}, {"G": trace_g})`` or
     ``({"F1": f1, "F2": f2, "D": d}, trace_f)``. Raises unless every
     parameter of the modules gets a buffer."""
-    for name, module in modules.items():
-        bufs, _ = _param_tensors(trace[name])
-        named = dict(module.named_parameters())
-        if bufs.keys() != named.keys():
-            raise KeyError(f"{name}: trace keys {sorted(bufs.keys() ^ named.keys())} "
-                           "do not match the module's parameters")
-        for key, p in named.items():
-            optimizer.state[p]["momentum_buffer"] = torch.empty_like(p).copy_(bufs[key])
+    _param_buffers(optimizer, modules, trace, "momentum_buffer")
+
+
+@torch.no_grad()
+def adam_state_from_jax(optimizer: torch.optim.Optimizer,
+                        modules: Mapping[str, torch.nn.Module],
+                        count, mu: Mapping[str, Mapping], nu: Mapping[str, Mapping]) -> None:
+    """Set ``torch.optim.Adam``'s state of every parameter of ``modules``
+    from ``scale_by_adam``'s state: ``step`` from ``count``, ``exp_avg``
+    and ``exp_avg_sq`` from the ``mu`` and ``nu`` trees."""
+    _param_buffers(optimizer, modules, mu, "exp_avg")
+    _param_buffers(optimizer, modules, nu, "exp_avg_sq")
+    step = float(np.asarray(count))
+    for module in modules.values():
+        for p in module.parameters():
+            # torch keeps a non-capturable step on the CPU, in the default dtype
+            optimizer.state[p]["step"] = torch.tensor(step)
+
+
+@torch.no_grad()
+def opt_state_to_jax(optimizer: torch.optim.Optimizer,
+                     modules: Mapping[str, torch.nn.Module]) -> Dict[str, Any]:
+    """The optax inner state of ``optimizer`` over ``modules``, as trees of
+    numpy arrays named like the JAX parameters: SGD with momentum gives
+    ``{"trace": {...}}``, SGD without ``{}``, Adam ``{"count", "mu",
+    "nu"}`` (``count`` int32, 0 before the first update)."""
+    def buffer(p, name):
+        t = optimizer.state.get(p, {}).get(name)
+        return torch.zeros_like(p) if t is None else t
+
+    def tree(name):
+        return params_to_jax({mod_name: {k: buffer(p, name) for k, p in m.named_parameters()}
+                              for mod_name, m in modules.items()})[0]
+
+    if isinstance(optimizer, torch.optim.Adam):
+        steps = {int(s["step"]) for s in optimizer.state.values() if "step" in s} or {0}
+        if len(steps) != 1:
+            raise ValueError(f"Adam parameters at different steps {sorted(steps)}: "
+                             "optax keeps one count")
+        return {"count": np.asarray(steps.pop(), np.int32),
+                "mu": tree("exp_avg"), "nu": tree("exp_avg_sq")}
+    if isinstance(optimizer, torch.optim.SGD):
+        momentum = optimizer.param_groups[0]["momentum"]
+        return {"trace": tree("momentum_buffer")} if momentum else {}
+    raise TypeError(f"no optax state for {type(optimizer).__name__}")

@@ -207,3 +207,46 @@ def test_exported_serve_module_launches_the_kernel_per_call(cuda_device, tmp_pat
         assert fused_normalize_stack.launches == before + 1, i
     live = make_serve_fn(cfg, params, device="cuda")(request)
     assert float((pred == live).float().mean()) >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt", ["sgd", "adam"])
+def test_jax_checkpoint_from_the_card_reads_back_bit_equal(cuda_device, tmp_path, opt):
+    """A train state on the card after one MCD iteration, written as a JAX
+    ``.msgpack`` by ``save_jax_checkpoint`` and read back onto the card by
+    ``load_checkpoint`` (no ``.pt`` there): weights, BN statistics, the
+    optimizer state and the step are bit-equal; a bfloat16 CUDA tensor
+    survives the codec."""
+    from mcseg_tpu_torch.core.config import ExperimentConfig, ModelConfig, TrainConfig
+    from mcseg_tpu_torch.train.mcd import make_mcd_step
+    from mcseg_tpu_torch.train.state import create_train_state
+    from mcseg_tpu_torch.utils import msgpack_compat
+    from mcseg_tpu_torch.utils.checkpoint import load_checkpoint, save_jax_checkpoint
+
+    cfg = ExperimentConfig(model=ModelConfig(net="drn_d_14", input_ch=6, n_class=5,
+                                             dtype="float32"),
+                           train=TrainConfig(opt=opt, lr=0.01, num_k=2, seed=5))
+    state = create_train_state(cfg.model, cfg.train, cfg.train.seed, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    xs = torch.randn(2, 6, 48, 64, device="cuda", generator=g)
+    xt = torch.randn(2, 6, 48, 64, device="cuda", generator=g)
+    ys = torch.randint(0, 5, (2, 48, 64), device="cuda", generator=g)
+    make_mcd_step(cfg.train)(state, xs, ys, xt)
+    prefix = str(tmp_path / "last")
+    save_jax_checkpoint(prefix, state, cfg)
+    back, _ = load_checkpoint(prefix, device="cuda")
+    assert back.step == state.step == 1
+    for name, m in state.modules().items():
+        got = back.modules()[name].state_dict()
+        for k, v in m.state_dict().items():
+            if not k.endswith("num_batches_tracked"):
+                assert got[k].is_cuda and torch.equal(got[k], v), (name, k)
+    for mine, theirs in ((back.opt_g, state.opt_g), (back.opt_f, state.opt_f)):
+        a, b = mine.state_dict()["state"], theirs.state_dict()["state"]
+        assert a.keys() == b.keys() and len(a) > 0
+        for i in b:
+            for k, v in b[i].items():
+                assert torch.equal(a[i][k].cpu(), v.cpu()), (i, k)
+    bf = torch.randn(3, 5, device="cuda").to(torch.bfloat16)
+    got = msgpack_compat.restore(msgpack_compat.serialize({"x": bf}))["x"]
+    assert got.dtype == torch.bfloat16 and torch.equal(got, bf.cpu())

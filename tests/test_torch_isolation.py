@@ -3,8 +3,9 @@
 loads neither ``jax`` nor ``mcseg_tpu``, nor PIL (the readers import it
 only on their fallback route), builds nothing (registering the normalize
 kernel's custom op included), and its entry points (serving and its export,
-evaluation, the three trainers, the five commands, the serving bench) refuse
-to run on a CUDA device that is not there (no silent CPU fallback).
+evaluation, the three trainers, the five commands, the serving bench, the
+reference import, ``evaluate_preds`` and ``parity_eval``) refuse to run on
+a CUDA device that is not there (no silent CPU fallback).
 
 Runs in a fresh interpreter, since this test process has JAX loaded."""
 
@@ -29,7 +30,7 @@ leaked = sorted(m for m in sys.modules
 assert not leaked, leaked
 from mcseg_tpu_torch import native
 assert native.build_report() == {}, native.build_report()  # nothing built at import
-assert len(mods) >= 38, mods
+assert len(mods) >= 44, mods
 assert {"mcseg_tpu_torch._scripts", "mcseg_tpu_torch.cli.adapt_train",
         "mcseg_tpu_torch.cli.adapt_test", "mcseg_tpu_torch.cli.source_train",
         "mcseg_tpu_torch.cli.source_test", "mcseg_tpu_torch.cli.multitask_train",
@@ -37,17 +38,21 @@ assert {"mcseg_tpu_torch._scripts", "mcseg_tpu_torch.cli.adapt_train",
         "mcseg_tpu_torch.native", "mcseg_tpu_torch.data.disk_cache",
         "mcseg_tpu_torch.data.device_corpus", "mcseg_tpu_torch.eval.serving",
         "mcseg_tpu_torch.tools.export_serving", "mcseg_tpu_torch.tools.serve_http",
-        "mcseg_tpu_torch.tools.bench_serving"} <= set(mods), mods
+        "mcseg_tpu_torch.tools.bench_serving", "mcseg_tpu_torch.utils.msgpack_compat",
+        "mcseg_tpu_torch.utils.torch_import", "mcseg_tpu_torch.cli.import_torch",
+        "mcseg_tpu_torch.cli.evaluate_preds", "mcseg_tpu_torch.tools.make_result_sheet",
+        "mcseg_tpu_torch.tools.summarize_run", "mcseg_tpu_torch.tools.parity_eval"} <= set(mods), mods
 from mcseg_tpu_torch.utils import cuda_build
 assert cuda_build.load.cache_info().currsize == 0  # registering the op built nothing
 assert hasattr(torch.ops.mcseg, "normalize_stack")
 
 from mcseg_tpu_torch.core.config import DataConfig, ExperimentConfig, ModelConfig
 from mcseg_tpu_torch.eval.serving import export_serving, make_serve_fn
-from mcseg_tpu_torch.tools import bench_serving
+from mcseg_tpu_torch.tools import bench_serving, parity_eval
 from mcseg_tpu_torch.eval.tester import evaluate
 from mcseg_tpu_torch.models.factory import init_models
-from mcseg_tpu_torch.cli import adapt_test, adapt_train, multitask_train, source_test, source_train
+from mcseg_tpu_torch.cli import (adapt_test, adapt_train, evaluate_preds, import_torch,
+                                 multitask_train, source_test, source_train)
 from mcseg_tpu_torch.train.loops import train_adapt, train_multitask, train_source
 from mcseg_tpu_torch.train.state import create_train_state
 
@@ -74,7 +79,11 @@ if not torch.cuda.is_available():
                  lambda: adapt_test.main(["/nonexistent/never_read"]),
                  lambda: source_test.main(["/nonexistent/never_read"]),
                  lambda: export_serving(cfg, params, "/nonexistent/never_written"),
-                 lambda: bench_serving.main(["--net", "drn_d_14"])):
+                 lambda: bench_serving.main(["--net", "drn_d_14"]),
+                 lambda: import_torch.main(["/nonexistent/never_read", "/nonexistent/never"]),
+                 lambda: evaluate_preds.main(["/nonexistent/preds", "/nonexistent/gt"]),
+                 lambda: parity_eval.main(["/nonexistent/never_read", "--dataset", "nyu",
+                                           "--data_root", "/nonexistent/root"])):
         try:
             call()
         except RuntimeError as e:
@@ -101,9 +110,11 @@ def test_torch_console_scripts_resolve():
     block = re.search(r"\[project\.scripts\]\n((?:[^\[\n][^\n]*\n)+)", body).group(1)
     entries = dict(re.findall(r'^(mcseg-torch-[\w-]+) = "([\w.]+:\w+)"', block, re.M))
     assert sorted(entries) == ["mcseg-torch-adapt-test", "mcseg-torch-adapt-train",
-                               "mcseg-torch-bench-serving", "mcseg-torch-export-serving",
+                               "mcseg-torch-bench-serving", "mcseg-torch-evaluate-preds",
+                               "mcseg-torch-export-serving", "mcseg-torch-import-torch",
                                "mcseg-torch-multitask-train", "mcseg-torch-serve",
-                               "mcseg-torch-source-test", "mcseg-torch-source-train"]
+                               "mcseg-torch-source-test", "mcseg-torch-source-train",
+                               "mcseg-torch-summarize-run"]
     for script, target in entries.items():
         module, attr = target.split(":")
         assert module == "mcseg_tpu_torch._scripts", script
