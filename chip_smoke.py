@@ -33,7 +33,11 @@ trunk made from the seed-0 weights imported by ``import_torch``,
 ``parity_eval`` on an NYU-layout val split it writes, ``evaluate_preds``
 and ``make_result_sheet`` on the dumps, the state through a JAX
 ``.msgpack`` and back, ``adapt_test`` of the ``.msgpack`` prefix and
-``summarize_run`` of a short run; and it checks that each path launched
+``summarize_run`` of a short run; then data parallelism (phase
+``parallel``): ``adapt_train`` at full width as a one-rank NCCL group,
+timed and profiled, two ranks sharing the card held to one process in
+float64, torch's native SyncBatchNorm ops held to the port's plain twin,
+and ``adapt_test --all_devices``; and it checks that each path launched
 the kernels. Every phase prints one JSON line
 and any failure raises (exit code != 0), a ptxas spill included. Kernel
 times are L2-cold, as the serving path finds its inputs: each timing
@@ -46,7 +50,9 @@ It exits non-zero without printing a result when CUDA is unavailable, and
 when ``mcseg_tpu_torch`` is not next to this file.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
@@ -575,10 +581,11 @@ def _train_breakdown(iterate, state, src, tgt):
             "step_b": med["B"], "step_c_x4": med["C"]}
 
 
-def _train_profile(iterate, state, src, tgt, top=8):
+def _train_profile(iterate, state, src, tgt, top=8, groups=()):
     """One iteration under ``torch.profiler``: the card's busy time (the sum
     of kernel and copy times on its one stream) against the iteration's
-    wall time under the profiler, and the kernels that take the most."""
+    wall time under the profiler, the kernels that take the most, and the
+    device time of the kernels whose names contain each of ``groups``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -593,10 +600,16 @@ def _train_profile(iterate, state, src, tgt, top=8):
             if r.device_type == torch.autograd.DeviceType.CUDA and r.self_device_time_total > 0]
     busy_ms = sum(r.self_device_time_total for r in rows) / 1e3
     rows.sort(key=lambda r: r.self_device_time_total, reverse=True)
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
-            "top_kernels": [{"name": r.key[:120], "ms": r.self_device_time_total / 1e3,
-                             "calls": r.count} for r in rows[:top]]}
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
+           "top_kernels": [{"name": r.key[:120], "ms": r.self_device_time_total / 1e3,
+                            "calls": r.count} for r in rows[:top]]}
+    if groups:
+        out["group_ms"] = {g: sum(r.self_device_time_total for r in rows
+                                  if g in r.key.lower()) / 1e3 for g in groups}
+        out["group_calls"] = {g: sum(r.count for r in rows if g in r.key.lower())
+                              for g in groups}
+    return out
 
 
 def _convt_fwd_bwd_ms(state, src, cfg):
@@ -1439,9 +1452,9 @@ def _file_fed_run(cfg, timed_from, snapshot_epoch=None, **run_kw):
     rec = {"waits": [], "yields": []}
     real = loops._input_stream
 
-    def observed(dataset, dev, cfg_, start_epoch):
+    def observed(dataset, dev, cfg_, start_epoch, dp=None):
         rec["dataset"] = dataset
-        inner = real(dataset, dev, cfg_, start_epoch)
+        inner = real(dataset, dev, cfg_, start_epoch, dp)
         prof = None
         try:
             for i in range(10**9):
@@ -2244,6 +2257,370 @@ def phase_interop(smi_line):
     return interop_launches
 
 
+PARALLEL_ITERATIONS, PARALLEL_WARMUP = 7, 2  # one-rank NCCL run: iterations, untimed
+# native SyncBatchNorm ops against their plain twin (forward output and the
+# three gradients), relative to the largest magnitude of each: float32 sums
+# of 2.5 M values per channel in another order (Welford against two
+# passes); bf16 outputs may round to the neighbouring bf16 value (2^-7 of
+# the largest magnitude at most)
+SYNC_BN_BOUNDS = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+TWO_RANK_BOUND = 1e-9  # float64: 2 ranks on the card against 1, relative
+SYNC_GROUPS = ("nccl", "batch_norm", "bn_")  # kernel-name groups of the profiled iteration
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _state_tensors(state):
+    """Parameters, BN statistics and both optimizers' states by name, on
+    the CPU."""
+    out = {f"{name}.{k}": v.detach().cpu().clone()
+           for name, m in state.modules().items() for k, v in m.state_dict().items()}
+    for opt_name in ("opt_g", "opt_f"):
+        opt = getattr(state, opt_name)
+        params = [p for g in opt.param_groups for p in g["params"]]
+        for i, p in enumerate(params):
+            for k, v in sorted(opt.state.get(p, {}).items()):
+                if hasattr(v, "detach"):
+                    out[f"{opt_name}.{i}.{k}"] = v.detach().cpu().clone()
+    return out
+
+
+def _max_rel_diff(got, want):
+    """The largest difference of two ``_state_tensors``, relative to each
+    tensor's largest magnitude (integer tensors must be equal)."""
+    import torch
+
+    if set(got) != set(want):
+        raise AssertionError(f"state keys differ: {sorted(set(got) ^ set(want))[:10]}")
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k]
+        if not w.is_floating_point():
+            if not torch.equal(g, w):
+                raise AssertionError(f"{k}: {g} != {w}")
+            continue
+        worst = max(worst, float((g - w).abs().max() / max(float(w.abs().max()), 1e-300)))
+    return worst
+
+
+def _sync_bn_case(dp, dtype, shape=(B, 16, H, W), reps=10):
+    """torch's native SyncBatchNorm ops against their plain twin on the card
+    under the group ``dp``, at DRN level 1's shape at full width: forward,
+    running statistics and the three gradients of a random upstream, and
+    the fwd+bwd time of each beside cuDNN's BatchNorm without a group."""
+    import torch
+
+    from mcseg_tpu_torch.parallel import sync_bn
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+    x = x.contiguous(memory_format=torch.channels_last)
+    up = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    up = up.contiguous(memory_format=torch.channels_last)
+    c = shape[1]
+    w = torch.rand(c, generator=gen, device="cuda") + 0.5
+    b = torch.randn(c, generator=gen, device="cuda") * 0.1
+
+    def run(fn):
+        xs, ws, bs = (t.detach().clone().requires_grad_(True) for t in (x, w, b))
+        rm, rv = torch.zeros(c, device="cuda"), torch.ones(c, device="cuda")
+        y = fn(xs, ws, bs, rm, rv, 0.1, 1e-5, dp)
+        y.backward(up)
+        return {"y": y.detach(), "running_mean": rm, "running_var": rv, "dx": xs.grad,
+                "dweight": ws.grad, "dbias": bs.grad}
+
+    def cudnn(xs, ws, bs, rm, rv, momentum, eps, _):
+        return torch.nn.functional.batch_norm(xs, rm, rv, ws, bs, True, momentum, eps)
+
+    native, twin = run(sync_bn.sync_batch_norm_native), run(sync_bn.sync_batch_norm_reference)
+    rel = {k: float((native[k].float() - twin[k].float()).abs().max()
+                    / twin[k].float().abs().max()) for k in native}
+    ms = {}
+    for name, fn in (("native", sync_bn.sync_batch_norm_native),
+                     ("twin", sync_bn.sync_batch_norm_reference), ("cudnn_no_group", cudnn)):
+        run(fn)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            run(fn)
+        end.record()
+        end.synchronize()
+        ms[name + "_fwd_bwd_ms"] = start.elapsed_time(end) / reps
+    bound = SYNC_BN_BOUNDS[str(dtype).split(".")[-1]]
+    return {"dtype": str(dtype).split(".")[-1], "shape": list(shape), "max_rel_diff": rel,
+            "bound": bound, "ok": max(rel.values()) <= bound, **ms}
+
+
+def _timed_main(argv):
+    """``adapt_train.main(argv)`` on the card with each iteration timed on
+    the host clock around a synchronize, the last one under the profiler
+    instead; its launches and native SyncBatchNorm calls."""
+    import torch
+
+    from mcseg_tpu_torch.cli import adapt_train
+    from mcseg_tpu_torch.ops.normalize import fused_normalize_stack
+    from mcseg_tpu_torch.parallel import sync_bn
+    from mcseg_tpu_torch.train import loops
+
+    times, profiled = [], {}
+    build_iteration = loops.make_adapt_iteration
+
+    def timed(cfg, dp=None):
+        iterate = build_iteration(cfg, dp)
+
+        def timed_iterate(*a, **kw):
+            if len(times) == PARALLEL_ITERATIONS - 1:  # the last one, profiled
+                held = {}
+
+                def call(*args):
+                    held["metrics"] = iterate(*args, **kw)
+
+                profiled.update(_train_profile(call, *a, top=10, groups=SYNC_GROUPS))
+                return held["metrics"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = iterate(*a, **kw)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            return metrics
+
+        return timed_iterate
+
+    loops.make_adapt_iteration = timed
+    fused_normalize_stack.launches = 0
+    sync_bn.sync_batch_norm_native.calls = 0
+    try:
+        state = adapt_train.main(argv, device="cuda")
+    finally:
+        loops.make_adapt_iteration = build_iteration
+    return {"iterations": state.step, "launches": fused_normalize_stack.launches,
+            "sync_bn_native_calls": sync_bn.sync_batch_norm_native.calls,
+            "ms_per_iteration_all": times,
+            "ms_per_iteration": statistics.median(times[PARALLEL_WARMUP:]),
+            "profile": profiled}
+
+
+def _one_rank_job(arg):
+    """Phase ``parallel`` (a) and (c), in a process of its own (the entry
+    point joins and leaves a process group): ``adapt_train.main`` at full
+    width without a group, then the same command as rank 0 of a one-rank
+    NCCL group (``--coordinator``), both timed alike (``_timed_main``);
+    then the native SyncBatchNorm ops against their twin under a new
+    one-rank NCCL group. Prints one JSON line."""
+    import torch
+
+    from mcseg_tpu_torch.parallel import multihost
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    argv, out_dir, ports = json.loads(arg)
+    report = {"no_group": _timed_main(argv + ["--out_dir", out_dir + "_no_group"])}
+    torch.cuda.reset_peak_memory_stats()
+    report.update(_timed_main(argv + ["--out_dir", out_dir, "--coordinator",
+                                      f"127.0.0.1:{ports[0]}", "--num_processes", "1",
+                                      "--process_id", "0"]))
+    report["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    dp = multihost.initialize(f"127.0.0.1:{ports[1]}", 1, 0, "cuda")
+    try:
+        report["sync_bn"] = [_sync_bn_case(dp, dt) for dt in (torch.float32, torch.bfloat16)]
+        report["backend"] = torch.distributed.get_backend()
+    finally:
+        multihost.shutdown()
+    print(json.dumps(report), flush=True)
+
+
+def _two_rank_config(out_dir):
+    """Phase ``parallel`` (b): drn_d_22 in float64 at 64x48, RGB, global
+    batch 8, num_k 2, 3 MCD iterations (24 samples make one epoch). RGB
+    because its train preprocess is elementwise: HHA's float32 per-image
+    sums round differently at batch 4 and 8 on the card (CUDA splits a
+    reduction by its output count), and three MCD iterations amplify that
+    1e-7 input difference past 1e-2 (0.77 relative in G's momentum on an
+    H100)."""
+    from mcseg_tpu_torch.core.config import (
+        DataConfig, ExperimentConfig, ModelConfig, TrainConfig)
+
+    return ExperimentConfig(
+        model=ModelConfig(net="drn_d_22", input_ch=3, n_class=40, dtype="float64",
+                          upsample="convt"),
+        data=DataConfig(src_dataset="synthetic", tgt_dataset="synthetic_shifted",
+                        batch_size=B, train_img_shape=(64, 48), test_img_shape=(64, 48),
+                        input_ch=3, max_samples=3 * B, num_workers=0),
+        train=TrainConfig(lr=0.01, num_k=2, epochs=1, max_steps=100, log_every=1, seed=0,
+                          out_dir=out_dir))
+
+
+def _two_rank_job(rank, port, out_dir):
+    """One of two ranks sharing the card through a gloo group (NCCL refuses
+    two ranks on one device): ``train_adapt`` of ``_two_rank_config``;
+    writes its state to ``out_dir/state<rank>.pt`` and prints one JSON
+    line."""
+    import torch
+
+    from mcseg_tpu_torch.ops.normalize import fused_normalize_stack
+    from mcseg_tpu_torch.parallel import multihost, sync_bn
+    from mcseg_tpu_torch.train.loops import train_adapt
+
+    dp = multihost.initialize(f"127.0.0.1:{port}", 2, rank, "cuda:0", backend="gloo")
+    try:
+        cfg = _two_rank_config(os.path.join(out_dir, f"rank{rank}"))
+        fused_normalize_stack.launches = 0
+        sync_bn.sync_batch_norm_native.calls = 0
+        state = train_adapt(cfg, dp=dp)
+        torch.save(_state_tensors(state), os.path.join(out_dir, f"state{rank}.pt"))
+        print(json.dumps({"rank": rank, "iterations": state.step,
+                          "launches": fused_normalize_stack.launches,
+                          "sync_bn_native_calls": sync_bn.sync_batch_norm_native.calls,
+                          "backend": torch.distributed.get_backend()}), flush=True)
+    finally:
+        multihost.shutdown()
+
+
+def _job(code):
+    """Start ``python3 -c code`` from the checkout; returns its Popen."""
+    return subprocess.Popen([sys.executable, "-c", code], cwd=HERE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _finish(proc, what, timeout=600):
+    out, err = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: exit {proc.returncode}\n{out[-2000:]}\n{err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def phase_parallel(smi_line, train_ms=None):
+    """Data parallelism on the card: (a) ``adapt_train`` at full width
+    (DRN-D-38, RGB+HHA, 40 classes, 640x480, batch 8, bf16, num_k 4) as a
+    one-rank NCCL group (``--coordinator``), ms per iteration beside the
+    same command without the group in the same process and beside phase
+    ``train``'s iteration, and the kernel's 2 launches per iteration; (b) 2 ranks sharing the card (gloo) against 1 process in
+    float64, drn_d_22 RGB at 64x48, batch 8, 3 MCD iterations, within 1e-9;
+    (c) the native SyncBatchNorm ops against their twin at DRN level 1's
+    full-width shape in float32 and bf16; (d) ``adapt_test --all_devices``
+    (every card of the process) against plain scoring of (a)'s checkpoint,
+    the confusion matrices equal. (b)'s ranks run in two processes started
+    together, then (a) and (c) in one more, alone on the card while (a) is
+    timed; their files are under build/parallel_* and removed at the end."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mcseg_tpu_torch.cli import adapt_test
+    from mcseg_tpu_torch.eval.tester import evaluate
+    from mcseg_tpu_torch.ops.normalize import fused_normalize_stack
+    from mcseg_tpu_torch.train.loops import train_adapt
+    from mcseg_tpu_torch.utils.checkpoint import load_params
+
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build"), prefix="parallel_") as tmp:
+        a_dir, b_dir = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        os.makedirs(b_dir)
+        torch.cuda.empty_cache()  # the other processes need the card's memory
+        # (b) first, both ranks together, then the one-process run here; (a)
+        # after, so that nothing else runs on the card while it is timed
+        port = _free_port()
+        twos = [_job(f"import chip_smoke as c; c._two_rank_job({r}, {port}, {b_dir!r})")
+                for r in range(2)]
+        ranks = [_finish(p, f"rank {r} of two on one card") for r, p in enumerate(twos)]
+        fused_normalize_stack.launches = 0
+        single = train_adapt(_two_rank_config(os.path.join(b_dir, "one")), device=DEVICE)
+        single_launches = fused_normalize_stack.launches
+        want = _state_tensors(single)
+        del single
+        torch.cuda.empty_cache()
+        argv = (["synthetic", "synthetic_shifted", "--num_k", "4"] + _cli_argv(a_dir)
+                + ["--max_samples", str(PARALLEL_ITERATIONS * B)])
+        a = _finish(_job("import chip_smoke as c; c._one_rank_job(%r)"
+                         % json.dumps([argv, a_dir, [_free_port(), _free_port()]])),
+                    "one-rank NCCL adapt_train")
+        diffs = [_max_rel_diff(torch.load(os.path.join(b_dir, f"state{r}.pt")), want)
+                 for r in range(2)]
+        wrote = {r: sorted(os.listdir(os.path.join(b_dir, f"rank{r}")))
+                 if os.path.isdir(os.path.join(b_dir, f"rank{r}")) else None for r in range(2)}
+
+        # (d) every card of this process against plain scoring
+        prefix = os.path.join(a_dir, "last")
+        params, cfg = load_params(prefix)
+        cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        fused_normalize_stack.launches = 0
+        _, hist_all, _ = evaluate(params, cfg, print_table=False, devices=cards)
+        all_launches = fused_normalize_stack.launches
+        miou_plain, hist_plain, _ = evaluate(params, cfg, print_table=False, device=DEVICE)
+        fused_normalize_stack.launches = 0
+        with contextlib.redirect_stdout(io.StringIO()):
+            miou_all = adapt_test.main([prefix, "--all_devices"], device=DEVICE)
+        cli_launches = fused_normalize_stack.launches
+
+    ms, plain_ms = a["ms_per_iteration"], a["no_group"]["ms_per_iteration"]
+    eval_batches = -(-cfg.data.max_samples // B)
+    report = {
+        "one_rank_nccl": {
+            "backend": a["backend"], "net": "drn_d_38", "batch": B, "hw": [H, W],
+            "dtype": "bfloat16", "num_k": 4, "iterations": a["iterations"],
+            "warmup": PARALLEL_WARMUP, "ms_per_iteration": ms,
+            "ms_per_iteration_all": a["ms_per_iteration_all"],
+            "no_group_ms_per_iteration": plain_ms, "ratio_to_no_group": ms / plain_ms,
+            "no_group": a["no_group"],
+            "train_phase_ms_per_iteration": train_ms,
+            "ratio_to_train_phase": ms / train_ms if train_ms else None,
+            "launches": a["launches"], "launches_per_iteration": a["launches"] / a["iterations"],
+            "sync_bn_native_calls": a["sync_bn_native_calls"], "peak_mem_gb": a["peak_mem_gb"],
+            "profile": a["profile"],
+            "note": "host clock around each iteration ended by a synchronize, the median "
+                    "after the warm-up; the last iteration profiled instead; adapt_train "
+                    "through its main, card-resident corpus; no_group: the same command "
+                    "without the group flags in the same process, just before"},
+        "two_ranks_one_card": {
+            "backend": ranks[0]["backend"], "net": "drn_d_22", "input_ch": 3, "dtype": "float64",
+            "batch": B, "hw": [48, 64], "iterations": [r["iterations"] for r in ranks],
+            "launches_per_rank": [r["launches"] for r in ranks],
+            "single_process_launches": single_launches,
+            "sync_bn_native_calls_per_rank": [r["sync_bn_native_calls"] for r in ranks],
+            "max_rel_diff_vs_one_process": diffs, "bound": TWO_RANK_BOUND, "wrote": wrote},
+        "sync_bn_native_vs_twin": a["sync_bn"],
+        "all_devices": {"cards": len(cards), "launches": all_launches,
+                        "eval_batches": eval_batches, "cli_launches": cli_launches,
+                        "hist_equal": bool(np.array_equal(hist_all, hist_plain)),
+                        "hist_sum": int(hist_plain.sum()), "miou_all_devices": miou_all,
+                        "miou_plain": float(miou_plain)},
+    }
+    failures = []
+    if a["iterations"] != PARALLEL_ITERATIONS or a["launches"] != 2 * PARALLEL_ITERATIONS:
+        failures.append(f"(a): {a['iterations']} iterations, {a['launches']} launches")
+    if a["sync_bn_native_calls"] == 0 or a["no_group"]["sync_bn_native_calls"] != 0:
+        failures.append("(a): the native SyncBatchNorm ops ran without the group, or "
+                        "never with it")
+    if a["no_group"]["launches"] != 2 * PARALLEL_ITERATIONS:
+        failures.append(f"(a) without the group: {a['no_group']['launches']} launches")
+    if any(r["iterations"] != 3 or r["launches"] != 6 for r in ranks) or single_launches != 6:
+        failures.append(f"(b): ranks {ranks}, one process {single_launches} launches")
+    if max(diffs) > TWO_RANK_BOUND:
+        failures.append(f"(b): 2 ranks differ from 1 by {max(diffs)} > {TWO_RANK_BOUND}")
+    if wrote[1] is not None or "last.pt" not in (wrote[0] or []):
+        failures.append(f"(b): rank 0 alone must write its run directory: {wrote}")
+    if not all(case["ok"] for case in a["sync_bn"]):
+        failures.append(f"(c): native SyncBatchNorm off its twin: {a['sync_bn']}")
+    if not report["all_devices"]["hist_equal"] or miou_all != miou_plain \
+            or all_launches != len(cards) * eval_batches or cli_launches != all_launches:
+        failures.append(f"(d): {report['all_devices']}")
+    report["phase_seconds"] = time.perf_counter() - t_phase
+    launches = (a["launches"] + sum(r["launches"] for r in ranks) + all_launches + cli_launches)
+    emit("parallel", card=smi_line, parallel_launches=launches, **report)
+    if failures:
+        raise AssertionError(f"phase parallel: {failures}")
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     try:
@@ -2272,6 +2649,7 @@ def main():
     corpus_launches = phase_corpus(smi_line, staged_ms)
     deploy_launches = phase_deploy(smi_line)
     interop_launches = phase_interop(smi_line)
+    parallel_launches = phase_parallel(smi_line, staged_ms)
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [{
         "name": "fused_normalize_stack", "route": "cuda", "source": KERNEL_SRC,
@@ -2284,7 +2662,7 @@ def main():
         "cli_launches": cli_launches,
         "family_launches": family_launches, "corpus_launches": corpus_launches,
         "deploy_launches": deploy_launches, "interop_launches": interop_launches,
-        "train_case_ms": train_case["kernel_ms"],
+        "parallel_launches": parallel_launches, "train_case_ms": train_case["kernel_ms"],
         "train_case_share_of_bound": train_case["share_of_bound"],
         "c7_case_ms": c7_case["kernel_ms"], "c7_case_bound_ms": c7_case["bound_ms"],
         "c7_case_share_of_bound": c7_case["share_of_bound"]}]}), flush=True)

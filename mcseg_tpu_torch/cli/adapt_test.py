@@ -4,12 +4,15 @@ Rebuilds the model from the config stored beside the checkpoint, averages
 the two classifiers unless ``--f1_only``, and prints the per-class IoU
 table; ``--outdir`` also writes label and colour PNGs of every prediction
 (and, with ``--saves_prob``, its float16 softmax), ``--submit_dir`` the
-Cityscapes submission dumps.
+Cityscapes submission dumps. ``--all_devices`` scores on every visible
+card of this process, each batch's rows split across them.
 
     python -m mcseg_tpu_torch.cli.adapt_test runs/run0/last nyu
 """
 
 import dataclasses
+
+import torch
 
 from mcseg_tpu_torch.cli.argparse_compat import get_testing_parser, reject_unported
 from mcseg_tpu_torch.core.device import resolve_device
@@ -45,10 +48,14 @@ def main(argv=None, average_classifiers=None, device="cuda"):
     if overrides:
         cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, **overrides))
     dataset = get_dataset(cfg.data.tgt_dataset, cfg.data, args.split)
+    devices = None
+    if args.all_devices:
+        devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                   if dev.type == "cuda" else [dev])
     miou, _, _ = evaluate(params, cfg, dataset, device=dev,
                           average_classifiers=average_classifiers,
                           submit_dir=args.submit_dir, save_dir=args.outdir,
-                          saves_prob=args.saves_prob)
+                          saves_prob=args.saves_prob, devices=devices)
     return miou
 
 

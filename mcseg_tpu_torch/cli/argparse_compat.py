@@ -8,9 +8,13 @@ plus ``fix_img_shape_args`` and ``args_to_config``.
 
 Every flag parses. ``--s2d`` only chooses how the JAX package lays out the
 same computation: the port keeps it in the config sidecar and does not act
-on it. Flags that change what a run produces or where it runs, and that
-the port has not ported, raise ``NotImplementedError`` from
-``reject_unported`` when given a value other than their default.
+on it. ``--multihost`` / ``--coordinator`` / ``--num_processes`` /
+``--process_id`` make a training command one rank of a data-parallel job
+(``parallel/multihost.py``), and ``--all_devices`` scores on every card of
+the process. A flag that changes what a run produces or where it runs, and
+that the port has not ported (``--spatial_devices``), raises
+``NotImplementedError`` from ``reject_unported`` when given a value other
+than its default.
 """
 
 from __future__ import annotations
@@ -65,13 +69,14 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
                    help="shard activation height over devices (not ported: "
                         "a value above 1 raises)")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-process job (not ported: raises)")
+                   help="one rank of a data-parallel job launched by torchrun "
+                        "(env://), one process per card")
     p.add_argument("--coordinator", type=str, default=None,
-                   help="multihost coordinator host:port (not ported: raises)")
+                   help="host:port of rank 0 for a job launched without torchrun")
     p.add_argument("--num_processes", type=int, default=None,
-                   help="process count for --coordinator (not ported: raises)")
+                   help="ranks of the job (with --coordinator)")
     p.add_argument("--process_id", type=int, default=None,
-                   help="rank for --coordinator (not ported: raises)")
+                   help="this process's rank (with --coordinator)")
     p.add_argument("--sync_checkpoint", action="store_true",
                    help="write epoch checkpoints on the training thread "
                         "(default: copied to host memory, written in the "
@@ -169,19 +174,14 @@ def get_testing_parser(name: str = "test") -> argparse.ArgumentParser:
                    help="score with F1 alone (disables adapt_test's "
                         "classifier averaging)")
     p.add_argument("--all_devices", action="store_true",
-                   help="shard evaluation over every device (not ported: raises)")
+                   help="split each batch over every card of this process")
     p.add_argument("--max_samples", type=int, default=None)
     return p
 
 
 # flag -> (value that is accepted, the ROADMAP item that ports the flag)
 _UNPORTED = {
-    "multihost": (False, "Queue 1 item 7 (parallelism)"),
-    "coordinator": (None, "Queue 1 item 7 (parallelism)"),
-    "num_processes": (None, "Queue 1 item 7 (parallelism)"),
-    "process_id": (None, "Queue 1 item 7 (parallelism)"),
-    "spatial_devices": (1, "Queue 1 item 7 (parallelism)"),
-    "all_devices": (False, "Queue 1 item 7 (parallelism)"),
+    "spatial_devices": (1, "Queue 1 item 10 (spatial partitioning)"),
 }
 
 

@@ -12,6 +12,9 @@ The contract: ``corpus_stream`` draws its indices from the host pipeline's
 exactly the tensors that ``device_prefetch(batch_iterator(...))`` yields,
 so switching ``--device_corpus`` on or off cannot change a training result
 (``tests/test_torch_host_train.py`` holds trained parameters bit-equal).
+A rank of a data-parallel job stages the whole corpus and gathers its rows
+of each global batch (``local_rows``), as the JAX package's replicated
+corpus feeds each device its shard.
 """
 
 from __future__ import annotations
@@ -93,12 +96,14 @@ def stage_corpus(dataset, device, drop_label: bool = False,
 
 def corpus_stream(dataset, device, batch_size: int, shuffle: bool = True,
                   seed: int = 0, drop_last: bool = True, epochs: Optional[int] = None,
-                  start_epoch: int = 0) -> Iterator[Union[Corpus, Tuple[Corpus, Corpus]]]:
+                  start_epoch: int = 0, local_rows: Optional[np.ndarray] = None
+                  ) -> Iterator[Union[Corpus, Tuple[Corpus, Corpus]]]:
     """The card-resident replacement of
     ``device_prefetch(batch_iterator(...), device)``: the same batches
     (pairs for a ZipDataset), gathered on ``device``. The host builds one
     [B] index vector per iteration and the gather runs on the device's
-    stream, so no prefetch thread is needed."""
+    stream, so no prefetch thread is needed. ``local_rows`` keeps those
+    rows of each global batch, as ``batch_iterator`` does."""
     device = torch.device(device)
     n = len(dataset)
     if batch_size > n:
@@ -114,5 +119,7 @@ def corpus_stream(dataset, device, batch_size: int, shuffle: bool = True,
         return {k: v.index_select(0, idx) for k, v in corpus.items()}
 
     for idx in _index_batches(n, batch_size, shuffle, seed, drop_last, epochs, start_epoch):
+        if local_rows is not None:
+            idx = idx[np.asarray(local_rows)]
         didx = torch.from_numpy(idx.astype(np.int64)).to(device)
         yield (gather(src, didx), gather(tgt, didx)) if zipped else gather(src, didx)

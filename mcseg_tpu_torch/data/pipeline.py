@@ -6,7 +6,9 @@ The port of the JAX package's ``data/pipeline.py`` on one device:
 * ``batch_iterator``: the seeded index stream (``_index_batches``, resume
   burn-in included) and stacked host batches through each reader's
   ``get_batch``; ``num_workers`` > 1 decodes ``prefetch_batches`` batches
-  ahead on a thread pool, in the same order as the serial path.
+  ahead on a thread pool, in the same order as the serial path. A rank of
+  a data-parallel job draws the same global stream and decodes only its
+  rows (``local_rows``).
 * ``wire_format``: depth as uint16 millimetres, target labels dropped.
 * ``device_prefetch``: a background thread turns host batches into wire
   format, pins them and copies them to the card on a side CUDA stream,
@@ -70,19 +72,31 @@ def map_ahead(fn: Callable, items: Iterable, num_workers: int = 0,
 def batch_iterator(dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
                    drop_last: bool = True, epochs: Optional[int] = None,
                    num_workers: int = 0, prefetch_batches: int = 2,
-                   start_epoch: int = 0) -> Iterator:
+                   start_epoch: int = 0, local_rows: Optional[np.ndarray] = None
+                   ) -> Iterator:
     """Yield stacked host batches (a pair of dicts for a ZipDataset).
 
     ``start_epoch`` fast-forwards the stream for a resumed run: it yields
     epochs [start_epoch, epochs) of the uninterrupted run. Each batch comes
     from the dataset's ``get_batch`` (whose native path also threads across
     the samples of the batch); ``num_workers`` > 1 keeps
-    ``prefetch_batches`` further batches decoding on a thread pool."""
+    ``prefetch_batches`` further batches decoding on a thread pool.
+
+    ``local_rows`` (a data-parallel rank's ``parallel.mesh.local_batch_rows``)
+    decodes and yields only those rows of each global batch of
+    ``batch_size``: every rank draws the same index stream, and decodes
+    O(local batch) per step, as the JAX package's ``local_rows`` does."""
     n = len(dataset)
     if batch_size > n:
         raise ValueError(f"batch_size {batch_size} > dataset size {n}")
     idx_iter = _index_batches(n, batch_size, shuffle, seed, drop_last, epochs,
                               start_epoch)
+    if local_rows is not None:
+        if not drop_last:
+            raise ValueError("local_rows needs drop_last: a short tail batch has no "
+                             "rows of its own per rank")
+        rows = np.asarray(local_rows)
+        idx_iter = (idx[rows] for idx in idx_iter)
     yield from map_ahead(dataset.get_batch, idx_iter, num_workers, prefetch_batches)
 
 

@@ -18,7 +18,7 @@ softmax maps with ``saves_prob``).
 from __future__ import annotations
 
 import os
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +37,8 @@ from mcseg_tpu_torch.losses.seg import boundary_targets_from_labels
 from mcseg_tpu_torch.models.factory import Params, get_aux_heads, get_models
 from mcseg_tpu_torch.ops.preprocess import depth_to_meters, make_eval_preprocess
 from mcseg_tpu_torch.ops.upsample import resize_bilinear_nchw
+from mcseg_tpu_torch.parallel.mesh import (
+    DataParallel, all_sum, batch_rows, local_batch_rows)
 
 
 def _averaged_head_params(params1: Dict[str, torch.Tensor],
@@ -226,27 +228,31 @@ def _aux_table_lines(sums: Dict[str, Dict[str, float]], tol: int) -> str:
     return out
 
 
-def padded_batches(dataset, bs: int, num_workers: int = 0,
-                   pad_depth: bool = False) -> Iterator[Tuple[Dict[str, np.ndarray], int]]:
+def padded_batches(dataset, bs: int, num_workers: int = 0, pad_depth: bool = False,
+                   rows: Optional[np.ndarray] = None
+                   ) -> Iterator[Tuple[Dict[str, np.ndarray], int]]:
     """Full-size batches over all samples, in order, through the reader's
     ``get_batch``: the tail batch is padded with copies of its last sample
     whose labels are set to ignore (and, with ``pad_depth``, whose depth
     is set to 0, which the depth metrics mask), so padding adds nothing to
     the scores (dropping the tail would skew mIoU). ``num_workers`` > 1
-    decodes the next batches on a thread pool. Yields (batch, number of
-    real samples)."""
+    decodes the next batches on a thread pool; ``rows`` (a rank's
+    ``local_batch_rows``) decodes only those rows of each batch. Yields
+    (batch, number of real samples in the whole batch)."""
     n = len(dataset)
+    keep = list(range(bs)) if rows is None else [int(r) for r in rows]
 
     def load(start):
         idx = list(range(start, min(start + bs, n)))
-        n_pad = bs - len(idx)
-        batch = dataset.get_batch(idx + [idx[-1]] * n_pad)
-        if n_pad:
+        full = idx + [idx[-1]] * (bs - len(idx))
+        batch = dataset.get_batch([full[r] for r in keep])
+        pad = [i for i, r in enumerate(keep) if r >= len(idx)]
+        if pad:
             batch["label"] = batch["label"].copy()
-            batch["label"][len(idx):] = IGNORE
+            batch["label"][pad] = IGNORE
             if pad_depth and "depth" in batch:
                 batch["depth"] = batch["depth"].copy()
-                batch["depth"][len(idx):] = 0
+                batch["depth"][pad] = 0
         return batch, len(idx)
 
     yield from map_ahead(load, range(0, n, bs), num_workers)
@@ -263,7 +269,8 @@ def evaluate(params: Params, cfg: ExperimentConfig, dataset=None,
              max_batches: Optional[int] = None, print_table: bool = True,
              device="cuda", average_classifiers: bool = True,
              num_workers: Optional[int] = None, submit_dir: Optional[str] = None,
-             save_dir: Optional[str] = None, saves_prob: bool = False):
+             save_dir: Optional[str] = None, saves_prob: bool = False,
+             dp: Optional[DataParallel] = None, devices: Optional[Sequence] = None):
     """Score ``params`` on ``dataset`` (default: the config's target corpus,
     val split) with F1 and F2 averaged, or F1 alone when
     ``average_classifiers`` is False. A multitask checkpoint's depth head
@@ -277,7 +284,20 @@ def evaluate(params: Params, cfg: ExperimentConfig, dataset=None,
     ``{idx:06d}_label.png`` (train ids) and ``{idx:06d}_color.png`` (the
     corpus palette), and with ``saves_prob`` its softmax as
     ``{idx:06d}_prob.npy``, float16 [H,W,n_class]; padding rows are never
-    dumped. Returns (miou, hist int64 [n, n] numpy, table string)."""
+    dumped.
+
+    ``dp``: score as one rank of a data-parallel group on ``dp.device``
+    (every rank gets the group's result; only rank 0 prints; a group of
+    more than one rank cannot dump, as the JAX package's multi-process
+    mesh cannot). ``devices``: score on one replica per device of this
+    process, each batch's rows split across them. Returns (miou, hist
+    int64 [n, n] numpy, table string)."""
+    if dp is not None and devices:
+        raise ValueError("evaluate takes a data-parallel group or devices, not both")
+    if dp is not None and dp.world > 1 and (save_dir or submit_dir):
+        raise ValueError("--outdir and --submit_dir cannot be written by a data-parallel "
+                         "group of more than one rank; score with one process "
+                         "(--all_devices) to dump predictions")
     submit_table = None
     if submit_dir:
         submit_table = get_submit_table(cfg.data.tgt_dataset)
@@ -286,38 +306,47 @@ def evaluate(params: Params, cfg: ExperimentConfig, dataset=None,
                 f"no submission protocol for corpus {cfg.data.tgt_dataset!r} "
                 "(only Cityscapes has an evaluation server)")
         os.makedirs(submit_dir, exist_ok=True)
-    dev = resolve_device(device)
+    devs = ([resolve_device(d) for d in devices] if devices
+            else [dp.device if dp is not None else resolve_device(device)])
     dataset = dataset or get_dataset(cfg.data.tgt_dataset, cfg.data, "val")
     _, _, names, palette = get_label_spec(cfg.data.tgt_dataset)
     if save_dir:
         os.makedirs(save_dir, exist_ok=True)
     with_depth = "D" in params and "depth" in dataset[0]
     tol = 2
-    step = make_eval_step(cfg, params, dev, average_classifiers, with_depth=with_depth,
-                          with_boundary="B" in params, boundary_tol=tol,
-                          with_probs=bool(save_dir) and saves_prob)
     n_class = cfg.model.n_class
     bs = min(cfg.data.batch_size, len(dataset))
+    parts = dp.world if dp is not None else len(devs)
+    bs = max(bs // parts, 1) * parts  # every part holds rows of every batch
+    steps = [(make_eval_step(cfg, params, d, average_classifiers, with_depth=with_depth,
+                             with_boundary="B" in params, boundary_tol=tol,
+                             with_probs=bool(save_dir) and saves_prob),
+              None if len(devs) == 1 else local_batch_rows(len(devs), i, bs))
+             for i, d in enumerate(devs)]
     if num_workers is None:
         num_workers = cfg.data.num_workers
-    total = torch.zeros((n_class, n_class), dtype=torch.int64, device=dev)
+    total = torch.zeros((n_class, n_class), dtype=torch.int64, device=devs[0])
     aux_total = {}
     dump_names = _submit_names(dataset, len(dataset)) if submit_table is not None else None
-    batches = padded_batches(dataset, bs, num_workers, pad_depth=with_depth)
+    batches = padded_batches(dataset, bs, num_workers, pad_depth=with_depth,
+                             rows=batch_rows(dp, bs))
     try:
         for bi, (raw, n_real) in enumerate(batches):
             if max_batches is not None and bi >= max_batches:
                 break
-            hist, pred, aux, probs = step(raw)
-            total += hist
-            for name, sums in aux.items():
-                acc = aux_total.setdefault(name, {})
-                for k, v in sums.items():
-                    acc[k] = acc.get(k, 0) + v.double()
+            outs = [step(raw if rows is None else
+                         {k: v[rows[0]:rows[-1] + 1] for k, v in raw.items()})
+                    for step, rows in steps]
+            for hist, _, aux, _ in outs:
+                total += hist.to(total.device)
+                for name, sums in aux.items():
+                    acc = aux_total.setdefault(name, {})
+                    for k, v in sums.items():
+                        acc[k] = acc.get(k, 0) + v.double().to(total.device)
             if save_dir or submit_table is not None:
-                pred_np = pred.cpu().numpy()
-                probs_np = (probs[:n_real].to(torch.float16).cpu().numpy()
-                            if probs is not None else None)
+                pred_np = np.concatenate([pred.cpu().numpy() for _, pred, _, _ in outs])
+                probs_np = (torch.cat([probs.to(torch.float16).cpu() for _, _, _, probs in outs])
+                            [:n_real].numpy() if outs[0][3] is not None else None)
                 for k in range(n_real):
                     idx = bi * bs + k
                     if save_dir:
@@ -331,10 +360,14 @@ def evaluate(params: Params, cfg: ExperimentConfig, dataset=None,
                                        os.path.join(submit_dir, dump_names[idx]))
     finally:
         batches.close()
+    if dp is not None:
+        total = all_sum(total, dp)
+        aux_total = {name: {k: all_sum(v, dp) for k, v in sums.items()}
+                     for name, sums in aux_total.items()}
     total = total.cpu().numpy()
     table = format_iou_table(total, names[:n_class]) + _aux_table_lines(
         {name: {k: float(v) for k, v in sums.items()} for name, sums in aux_total.items()},
         tol)
-    if print_table:
+    if print_table and (dp is None or dp.rank == 0):
         print(table)
     return miou_from_hist(total), total, table

@@ -8,6 +8,12 @@ sum and are left out of the count; the sum is divided by ``max(n_valid,
 would give NaN there). The auxiliary heads' losses: ``balanced_bce_2d``
 (boundary detection against ``boundary_targets_from_labels``) and
 ``berhu_loss`` (depth regression).
+
+Every loss takes ``dp``, a data-parallel context (``parallel.mesh``): its
+sums, counts and berHu's max are then taken over the group's global batch
+(``all_sum``, ``all_max``), so every rank gets the loss of the global
+batch, as GSPMD computes it in the JAX package. Without one (None) the
+loss is that of the local batch, computed as before.
 """
 
 from __future__ import annotations
@@ -16,6 +22,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from mcseg_tpu_torch.parallel.mesh import DataParallel, all_max, all_sum
 
 IGNORE_INDEX = 255
 
@@ -26,14 +34,15 @@ def at_least_f32(x: torch.Tensor) -> torch.Tensor:
 
 
 def cross_entropy_2d(logits: torch.Tensor, labels: torch.Tensor,
-                     ignore_index: int = IGNORE_INDEX) -> torch.Tensor:
+                     ignore_index: int = IGNORE_INDEX,
+                     dp: Optional[DataParallel] = None) -> torch.Tensor:
     """Mean cross-entropy over the valid pixels of ``logits`` [B,C,H,W]
     against integer ``labels`` [B,H,W]."""
     logits = at_least_f32(logits)
     labels = labels.long()
-    nll = F.cross_entropy(logits, labels, ignore_index=ignore_index,
-                          reduction="sum")
-    n_valid = (labels != ignore_index).sum().clamp(min=1)
+    nll = all_sum(F.cross_entropy(logits, labels, ignore_index=ignore_index,
+                                  reduction="sum"), dp)
+    n_valid = all_sum((labels != ignore_index).sum(), dp).clamp(min=1)
     return nll / n_valid.to(logits.dtype)
 
 
@@ -55,7 +64,8 @@ def boundary_targets_from_labels(labels: torch.Tensor, ignore_index: int = IGNOR
 
 
 def balanced_bce_2d(logits: torch.Tensor, targets: torch.Tensor,
-                    valid_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    valid_mask: Optional[torch.Tensor] = None,
+                    dp: Optional[DataParallel] = None) -> torch.Tensor:
     """Class-balanced binary cross-entropy (HED): over the valid pixels,
     boundary pixels weigh ``1 - beta`` and the rest ``beta``, with ``beta``
     the boundary fraction. ``logits`` [B,1,H,W] or [B,H,W], ``targets``
@@ -67,15 +77,16 @@ def balanced_bce_2d(logits: torch.Tensor, targets: torch.Tensor,
     if valid_mask is None:
         valid_mask = torch.ones_like(targets, dtype=torch.bool)
     validf = valid_mask.to(logits.dtype)
-    beta = (targets * validf).sum() / validf.sum().clamp(min=1.0)
+    beta = all_sum((targets * validf).sum(), dp) / all_sum(validf.sum(), dp).clamp(min=1.0)
     w = torch.where(targets > 0.5, 1.0 - beta, beta) * validf
     # the stable form: max(x, 0) - x t + log(1 + exp(-|x|))
     bce = logits.clamp(min=0.0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
-    return (w * bce).sum() / w.sum().clamp(min=1e-6)
+    return all_sum((w * bce).sum(), dp) / all_sum(w.sum(), dp).clamp(min=1e-6)
 
 
 def berhu_loss(pred: torch.Tensor, target: torch.Tensor,
-               valid_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+               valid_mask: Optional[torch.Tensor] = None,
+               dp: Optional[DataParallel] = None) -> torch.Tensor:
     """Reverse-Huber loss of ``pred`` [B,1,H,W] against depth ``target``
     [B,H,W] or [B,1,H,W]: |e| up to c, (e^2 + c^2) / 2c beyond, with c =
     max|e| / 5 over the valid pixels (at least 1e-6), summed over the pixels
@@ -88,6 +99,7 @@ def berhu_loss(pred: torch.Tensor, target: torch.Tensor,
         valid_mask = torch.isfinite(target) & (target > 0)
     err = torch.where(valid_mask, pred - target, torch.zeros((), dtype=pred.dtype))
     abs_err = err.abs()
-    c = (abs_err.amax() / 5.0).clamp(min=1e-6)
+    c = (all_max(abs_err.amax(), dp) / 5.0).clamp(min=1e-6)
     loss = torch.where(abs_err <= c, abs_err, (err * err + c * c) / (2.0 * c))
-    return loss.sum() / valid_mask.sum().clamp(min=1).to(loss.dtype)
+    return (all_sum(loss.sum(), dp)
+            / all_sum(valid_mask.sum(), dp).clamp(min=1).to(loss.dtype))

@@ -26,10 +26,13 @@ in and out.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+
+from mcseg_tpu_torch.parallel.mesh import DataParallel
+from mcseg_tpu_torch.parallel.sync_bn import sync_batch_norm
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
@@ -50,19 +53,40 @@ class BatchNorm2d(nn.BatchNorm2d):
     The output is torch's own (cuDNN on the card). In training, the running
     variance that torch wrote, ``(1-m)*rv_old + m*var*n/(n-1)``, is rescaled
     in place to ``(1-m)*rv_old + m*var`` with ``n = B*H*W``. The state-dict
-    keys are those of ``nn.BatchNorm2d``."""
+    keys are those of ``nn.BatchNorm2d``.
+
+    With a data-parallel context set (``set_data_parallel``), training-mode
+    statistics come from the group's global batch
+    (``parallel.sync_bn.sync_batch_norm``) and ``n`` is ``world*B*H*W``, as
+    GSPMD computes them in the JAX package; eval mode is unchanged."""
+
+    data_parallel: Optional[DataParallel] = None
 
     def forward(self, x):
         if not (self.training and self.track_running_stats):
             return super().forward(x)
-        n = x.numel() // x.shape[1]
+        dp = self.data_parallel
+        n = x.numel() // x.shape[1] * (dp.world if dp is not None else 1)
         kept = (1.0 - self.momentum) * self.running_var
-        y = super().forward(x)
+        if dp is None:
+            y = super().forward(x)
+        else:
+            self.num_batches_tracked.add_(1)
+            y = sync_batch_norm(x, self.weight, self.bias, self.running_mean,
+                                self.running_var, self.momentum, self.eps, dp)
         # through .data: the batch_norm node holds running_var for its
         # backward (which does not read it in training) and would refuse a
         # tensor whose version moved
         self.running_var.data.sub_(kept).mul_((n - 1) / n).add_(kept)
         return y
+
+
+def set_data_parallel(module: nn.Module, dp: Optional[DataParallel]) -> None:
+    """Set the data-parallel context of every ``BatchNorm2d`` of ``module``
+    (None: statistics of the local batch)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm2d):
+            m.data_parallel = dp
 
 
 def _bn(c: int) -> BatchNorm2d:

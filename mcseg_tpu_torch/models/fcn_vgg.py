@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mcseg_tpu_torch.ops.upsample import upsample_logits
+from mcseg_tpu_torch.parallel.mesh import DataParallel, local_batch_rows
 
 VGG16_STAGES = ((2, 64), (2, 128), (3, 256), (3, 512), (3, 512))  # (convs, channels)
 KEEP = 0.5  # Dropout(0.5): keep probability
@@ -47,10 +48,14 @@ class SeededMasks:
     """The train state's mask source: keep-masks drawn on ``device`` from a
     ``torch.Generator`` that ``reseed(step)`` seeds from (seed, step), so a
     resumed run draws the masks an uninterrupted one drew. Within an
-    iteration the generator advances in call order."""
+    iteration the generator advances in call order. Under a data-parallel
+    context ``data_parallel`` every rank draws the mask of the global batch
+    and keeps its rows (``parallel.mesh.local_batch_rows``), so rank r's
+    masks are rows r of a single process's."""
 
-    def __init__(self, seed: int, device):
+    def __init__(self, seed: int, device, data_parallel: Optional[DataParallel] = None):
         self.seed, self.device = seed, torch.device(device)
+        self.data_parallel = data_parallel
         self.reseed(0)
 
     def reseed(self, step: int) -> None:
@@ -59,7 +64,13 @@ class SeededMasks:
         self.gen = torch.Generator(self.device).manual_seed(int(mixed) & (2**63 - 1))
 
     def __call__(self, shape, device) -> torch.Tensor:
-        return torch.rand(shape, generator=self.gen, device=device) < KEEP
+        dp = self.data_parallel
+        if dp is None:
+            return torch.rand(shape, generator=self.gen, device=device) < KEEP
+        full = (shape[0] * dp.world,) + tuple(shape[1:])
+        rows = local_batch_rows(dp.world, dp.rank, full[0])
+        keep = torch.rand(full, generator=self.gen, device=device) < KEEP
+        return keep[int(rows[0]):int(rows[-1]) + 1]
 
 
 class GivenMasks:

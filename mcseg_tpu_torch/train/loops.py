@@ -12,6 +12,14 @@ SIGTERM/SIGINT or after ``max_hours``, per-epoch checkpoints pruned to
 ``--sync_checkpoint``; ``_EpochSaver``), ``last`` at the end, written
 synchronously, and resume from an epoch boundary after a check that the
 checkpoint has the requested structure.
+
+Data parallelism (``dp``, a ``parallel.mesh.DataParallel``): every rank
+draws the same global index stream and crop and flip draws, and keeps its
+rows of each global batch of ``batch_size``; its step reduces losses,
+BatchNorm statistics and gradients over the group, so the run is the
+single-process run of the global batch. Every rank starts from rank 0's
+state, and only rank 0 writes the run directory (logs, ``ep<N>``, pruning,
+``last``), followed by a barrier.
 """
 
 from __future__ import annotations
@@ -34,6 +42,8 @@ from mcseg_tpu_torch.data.pipeline import batch_iterator, device_prefetch
 from mcseg_tpu_torch.models.factory import get_aux_heads
 from mcseg_tpu_torch.ops.preprocess import (
     draw_augment, make_train_preprocess, pre_crop_canvas)
+from mcseg_tpu_torch.parallel.mesh import DataParallel, batch_rows, world_size
+from mcseg_tpu_torch.parallel.multihost import sync
 from mcseg_tpu_torch.train.mcd import make_mcd_step
 from mcseg_tpu_torch.train.multitask import (
     aux_head_keys, make_multitask_mcd_step, make_multitask_source_step)
@@ -64,25 +74,39 @@ def _img_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
 
 
-def make_adapt_iteration(cfg: ExperimentConfig) -> Callable:
+def _draws(gen: torch.Generator, b: int, pre, target, cfg: ExperimentConfig,
+           dp: Optional[DataParallel]):
+    """The crop and flip draws of this rank's ``b`` rows: those of the
+    global batch of ``b * world`` rows, drawn whole on every rank, then
+    cut to the rank's rows."""
+    draws = draw_augment(gen, b * world_size(dp), pre, target, cfg.data)
+    rows = batch_rows(dp, b * world_size(dp))
+    if rows is None:
+        return draws
+    return tuple(t[int(rows[0]):int(rows[-1]) + 1] for t in draws)
+
+
+def make_adapt_iteration(cfg: ExperimentConfig, dp: Optional[DataParallel] = None
+                         ) -> Callable:
     """``iterate(state, src, tgt, mark=None) -> metrics``: one training
     iteration on batches of raw planes already on the state's device —
     train preprocess of both (two launches of the normalize kernel), then
     the MCD step. The target batch's labels are not read. ``mark`` is
     passed to the step, and also called with 'preprocess' after both
-    preprocesses."""
+    preprocesses. Under ``dp`` the batches are this rank's rows of the
+    global batch."""
     dtype = compute_dtype(cfg.model.dtype)
     pp = make_train_preprocess(cfg.data, _img_dtype(dtype))
-    step = make_mcd_step(cfg.train, cfg.model.uses_one_classifier, dtype)
+    step = make_mcd_step(cfg.train, cfg.model.uses_one_classifier, dtype, dp)
     pre, target = pre_crop_canvas(cfg.data)
     as_input = _as_input(dtype)
 
     def iterate(state: MCDTrainState, src, tgt, mark=None):
         gen = augment_generator(cfg.train.seed, state.step)
         b = src["image"].shape[0]
-        xs, ys = pp(src, *draw_augment(gen, b, pre, target, cfg.data))
+        xs, ys = pp(src, *_draws(gen, b, pre, target, cfg, dp))
         xt, _ = pp({k: v for k, v in tgt.items() if k != "label"},
-                   *draw_augment(gen, b, pre, target, cfg.data))
+                   *_draws(gen, b, pre, target, cfg, dp))
         if mark:
             mark("preprocess")
         return step(state, as_input(xs), ys, as_input(xt), mark)
@@ -90,44 +114,47 @@ def make_adapt_iteration(cfg: ExperimentConfig) -> Callable:
     return iterate
 
 
-def make_source_iteration(cfg: ExperimentConfig) -> Callable:
+def make_source_iteration(cfg: ExperimentConfig, dp: Optional[DataParallel] = None
+                          ) -> Callable:
     """``iterate(state, src) -> metrics``: one source-only step on a batch
     of raw planes already on the state's device — train preprocess (one
-    launch of the normalize kernel), then the source step."""
+    launch of the normalize kernel), then the source step. ``dp`` as in
+    ``make_adapt_iteration``."""
     dtype = compute_dtype(cfg.model.dtype)
     pp = make_train_preprocess(cfg.data, _img_dtype(dtype))
-    step = make_source_step(cfg.train, dtype)
+    step = make_source_step(cfg.train, dtype, dp)
     pre, target = pre_crop_canvas(cfg.data)
     as_input = _as_input(dtype)
 
     def iterate(state: MCDTrainState, src):
         gen = augment_generator(cfg.train.seed, state.step)
-        x, y = pp(src, *draw_augment(gen, src["image"].shape[0], pre, target, cfg.data))
+        x, y = pp(src, *_draws(gen, src["image"].shape[0], pre, target, cfg, dp))
         return step(state, as_input(x), y)
 
     return iterate
 
 
 def make_multitask_iteration(cfg: ExperimentConfig, depth_weight: float = 0.5,
-                             boundary_weight: float = 0.0) -> Callable:
+                             boundary_weight: float = 0.0,
+                             dp: Optional[DataParallel] = None) -> Callable:
     """``iterate(state, src, tgt, mark=None) -> metrics``: one multitask MCD
     iteration — train preprocess of the source batch with its depth plane
     and of the target batch (two launches of the normalize kernel), then
     ``make_multitask_mcd_step``. The target batch's labels are not read.
-    ``mark`` as in ``make_adapt_iteration``."""
+    ``mark`` and ``dp`` as in ``make_adapt_iteration``."""
     dtype = compute_dtype(cfg.model.dtype)
     pp_src = make_train_preprocess(cfg.data, _img_dtype(dtype), with_depth=True)
     pp_tgt = make_train_preprocess(cfg.data, _img_dtype(dtype))
-    step = make_multitask_mcd_step(cfg.train, depth_weight, boundary_weight, dtype)
+    step = make_multitask_mcd_step(cfg.train, depth_weight, boundary_weight, dtype, dp)
     pre, target = pre_crop_canvas(cfg.data)
     as_input = _as_input(dtype)
 
     def iterate(state: MCDTrainState, src, tgt, mark=None):
         gen = augment_generator(cfg.train.seed, state.step)
         b = src["image"].shape[0]
-        xs, ys, ds = pp_src(src, *draw_augment(gen, b, pre, target, cfg.data))
+        xs, ys, ds = pp_src(src, *_draws(gen, b, pre, target, cfg, dp))
         xt, _ = pp_tgt({k: v for k, v in tgt.items() if k != "label"},
-                       *draw_augment(gen, b, pre, target, cfg.data))
+                       *_draws(gen, b, pre, target, cfg, dp))
         if mark:
             mark("preprocess")
         return step(state, as_input(xs), ys, ds, as_input(xt), mark)
@@ -136,19 +163,21 @@ def make_multitask_iteration(cfg: ExperimentConfig, depth_weight: float = 0.5,
 
 
 def make_multitask_source_iteration(cfg: ExperimentConfig, depth_weight: float = 0.5,
-                                    boundary_weight: float = 0.0) -> Callable:
+                                    boundary_weight: float = 0.0,
+                                    dp: Optional[DataParallel] = None) -> Callable:
     """``iterate(state, src) -> metrics``: one source-only multitask step —
     train preprocess with the depth plane (one launch of the normalize
-    kernel), then ``make_multitask_source_step``."""
+    kernel), then ``make_multitask_source_step``. ``dp`` as in
+    ``make_adapt_iteration``."""
     dtype = compute_dtype(cfg.model.dtype)
     pp = make_train_preprocess(cfg.data, _img_dtype(dtype), with_depth=True)
-    step = make_multitask_source_step(cfg.train, depth_weight, boundary_weight, dtype)
+    step = make_multitask_source_step(cfg.train, depth_weight, boundary_weight, dtype, dp)
     pre, target = pre_crop_canvas(cfg.data)
     as_input = _as_input(dtype)
 
     def iterate(state: MCDTrainState, src):
         gen = augment_generator(cfg.train.seed, state.step)
-        x, y, d = pp(src, *draw_augment(gen, src["image"].shape[0], pre, target, cfg.data))
+        x, y, d = pp(src, *_draws(gen, src["image"].shape[0], pre, target, cfg, dp))
         return step(state, as_input(x), y, d)
 
     return iterate
@@ -206,13 +235,17 @@ class _EpochSaver:
     ``--sync_checkpoint``; pruning to ``keep_checkpoints`` runs after the
     write publishes either way. ``close`` waits for pending writes, before
     the loop writes ``last`` synchronously, so a returned loop leaves a
-    complete run directory."""
+    complete run directory. Only the ``primary`` rank writes; on the other
+    ranks of a data-parallel job the saver does nothing."""
 
-    def __init__(self, cfg: ExperimentConfig, out_dir: str):
-        self._cfg, self._out_dir = cfg, out_dir
-        self._async = AsyncCheckpointer() if cfg.train.async_checkpoint else None
+    def __init__(self, cfg: ExperimentConfig, out_dir: str, primary: bool = True):
+        self._cfg, self._out_dir, self._primary = cfg, out_dir, primary
+        self._async = (AsyncCheckpointer() if cfg.train.async_checkpoint and primary
+                       else None)
 
     def save_epoch(self, epoch: int, state: MCDTrainState) -> None:
+        if not self._primary:
+            return
         prefix = os.path.join(self._out_dir, f"ep{epoch}")
         prune = functools.partial(prune_epoch_checkpoints, self._out_dir,
                                   self._cfg.train.keep_checkpoints)
@@ -228,18 +261,21 @@ class _EpochSaver:
             self._async.close()
 
 
-def _input_stream(dataset, dev: torch.device, cfg: ExperimentConfig, start_epoch: int):
+def _input_stream(dataset, dev: torch.device, cfg: ExperimentConfig, start_epoch: int,
+                  dp: Optional[DataParallel] = None):
     """The batches of the run on ``dev``: the card-resident corpus when
     ``--device_corpus`` resolves on (decoded once, gathered by index),
     else host decode on ``num_workers`` threads with prefetch to the
-    device. Both yield the same tensors for a seed."""
+    device. Both yield the same tensors for a seed; under ``dp``, this
+    rank's rows of each global batch."""
     bs, seed, epochs = cfg.data.batch_size, cfg.train.seed, cfg.train.epochs
+    rows = batch_rows(dp, bs)
     if resolve_device_corpus(cfg.data, dataset):
         return corpus_stream(dataset, dev, bs, seed=seed, epochs=epochs,
-                             start_epoch=start_epoch)
+                             start_epoch=start_epoch, local_rows=rows)
     return device_prefetch(
         batch_iterator(dataset, bs, seed=seed, epochs=epochs, start_epoch=start_epoch,
-                       num_workers=cfg.data.num_workers), dev)
+                       num_workers=cfg.data.num_workers, local_rows=rows), dev)
 
 
 # Checkpoint fields that determine the model and optimizer structure:
@@ -302,14 +338,21 @@ def _init_or_resume(cfg: ExperimentConfig, dev: torch.device,
 def _train_loop(cfg: ExperimentConfig, dataset, iterate: Callable,
                 logger: Optional[JsonlLogger], max_iterations: Optional[int],
                 on_epoch_end: Optional[Callable], dev: torch.device,
-                aux_heads: Sequence[str] = ()) -> MCDTrainState:
+                aux_heads: Sequence[str] = (),
+                dp: Optional[DataParallel] = None) -> MCDTrainState:
     """The loop the trainers share: ``iterate(state, *batches)`` on each
     item of the input stream of ``dataset`` on ``dev`` (a pair of batches
     for a ZipDataset); the state carries the auxiliary heads
-    ``aux_heads``."""
+    ``aux_heads``. Under ``dp`` the state starts as rank 0's, the stream
+    holds this rank's rows, and only rank 0 writes."""
+    batch_rows(dp, cfg.data.batch_size)  # refuses a batch the ranks do not divide
     state = _init_or_resume(cfg, dev, aux_heads)
+    state.broadcast_from_primary(dp)
+    state.set_data_parallel(dp)
+    primary = dp is None or dp.rank == 0
     out_dir = cfg.train.out_dir
-    os.makedirs(out_dir, exist_ok=True)
+    if primary:
+        os.makedirs(out_dir, exist_ok=True)
     own_logger = logger is None
     logger = logger or make_run_logger(cfg.train)
     bs = cfg.data.batch_size
@@ -318,8 +361,8 @@ def _train_loop(cfg: ExperimentConfig, dataset, iterate: Callable,
     # checkpoints fall on epoch boundaries; a mid-epoch step replays its
     # epoch from the start
     start_epoch = step0 // steps_per_epoch if cfg.train.resume else 0
-    stream = _input_stream(dataset, dev, cfg, start_epoch)
-    saver = _EpochSaver(cfg, out_dir)
+    stream = _input_stream(dataset, dev, cfg, start_epoch, dp)
+    saver = _EpochSaver(cfg, out_dir, primary)
     timer = StepTimer()
     stop = GracefulStop().install(cfg.train.max_hours)
     try:
@@ -346,36 +389,47 @@ def _train_loop(cfg: ExperimentConfig, dataset, iterate: Callable,
         if own_logger:
             logger.close()
         saver.close()
-    save_checkpoint(os.path.join(out_dir, "last"), state, cfg)
+    if primary:
+        save_checkpoint(os.path.join(out_dir, "last"), state, cfg)
+    if dp is not None:
+        sync()  # no rank leaves while rank 0 writes
     return state
+
+
+def _device(device, dp: Optional[DataParallel]) -> torch.device:
+    """The run's card: the data-parallel context's, else ``device``."""
+    return dp.device if dp is not None else resolve_device(device)
 
 
 def train_adapt(cfg: ExperimentConfig, logger: Optional[JsonlLogger] = None,
                 max_iterations: Optional[int] = None,
                 on_epoch_end: Optional[Callable] = None,
-                device="cuda") -> MCDTrainState:
+                device="cuda", dp: Optional[DataParallel] = None) -> MCDTrainState:
     """MCD adaptation training on ``device``: ``cfg.train.epochs`` epochs
     (or ``max_iterations``) over the zipped source and target corpora,
     from ``cfg.train.resume`` when set. Writes ``ep<N>`` checkpoints every
     ``checkpoint_every_epochs`` and ``last`` at the end into
-    ``cfg.train.out_dir``; returns the final state."""
-    dev = resolve_device(device)
+    ``cfg.train.out_dir``; returns the final state. Under ``dp``
+    (``parallel.multihost.initialize``) this process is one rank of a
+    data-parallel run of global batch ``cfg.data.batch_size`` on
+    ``dp.device``, and every rank returns the same state."""
+    dev = _device(device, dp)
     zipped = ZipDataset(get_dataset(cfg.data.src_dataset, cfg.data, cfg.data.split),
                         get_dataset(cfg.data.tgt_dataset, cfg.data, cfg.data.split))
-    return _train_loop(cfg, zipped, make_adapt_iteration(cfg), logger,
-                       max_iterations, on_epoch_end, dev)
+    return _train_loop(cfg, zipped, make_adapt_iteration(cfg, dp), logger,
+                       max_iterations, on_epoch_end, dev, dp=dp)
 
 
 def train_source(cfg: ExperimentConfig, logger: Optional[JsonlLogger] = None,
                  max_iterations: Optional[int] = None,
                  on_epoch_end: Optional[Callable] = None,
-                 device="cuda") -> MCDTrainState:
+                 device="cuda", dp: Optional[DataParallel] = None) -> MCDTrainState:
     """Supervised source-only training on ``device`` over the source
     corpus; otherwise as ``train_adapt``."""
-    dev = resolve_device(device)
+    dev = _device(device, dp)
     dataset = get_dataset(cfg.data.src_dataset, cfg.data, cfg.data.split)
-    return _train_loop(cfg, dataset, make_source_iteration(cfg), logger,
-                       max_iterations, on_epoch_end, dev)
+    return _train_loop(cfg, dataset, make_source_iteration(cfg, dp), logger,
+                       max_iterations, on_epoch_end, dev, dp=dp)
 
 
 def train_multitask(cfg: ExperimentConfig, depth_weight: float = 0.5,
@@ -383,23 +437,23 @@ def train_multitask(cfg: ExperimentConfig, depth_weight: float = 0.5,
                     logger: Optional[JsonlLogger] = None,
                     max_iterations: Optional[int] = None,
                     on_epoch_end: Optional[Callable] = None,
-                    device="cuda") -> MCDTrainState:
+                    device="cuda", dp: Optional[DataParallel] = None) -> MCDTrainState:
     """Multitask training on ``device``: segmentation plus the depth head
     (berHu, ``depth_weight``) and, when ``boundary_weight`` > 0, the
     boundary head, with MCD over the zipped corpora (``adapt``) or on the
     source corpus alone; otherwise as ``train_adapt``. A resumed
     checkpoint must hold a depth head, and a boundary head exactly when
     ``boundary_weight`` > 0. Late fusion raises before any state is
-    built."""
-    dev = resolve_device(device)
+    built. ``dp`` as in ``train_adapt``."""
+    dev = _device(device, dp)
     aux = aux_head_keys(boundary_weight)
     get_aux_heads(cfg.model, aux)  # refuses late fusion up front
     src = get_dataset(cfg.data.src_dataset, cfg.data, cfg.data.split)
     if adapt:
         dataset = ZipDataset(src, get_dataset(cfg.data.tgt_dataset, cfg.data, cfg.data.split))
-        iterate = make_multitask_iteration(cfg, depth_weight, boundary_weight)
+        iterate = make_multitask_iteration(cfg, depth_weight, boundary_weight, dp)
     else:
         dataset = src
-        iterate = make_multitask_source_iteration(cfg, depth_weight, boundary_weight)
+        iterate = make_multitask_source_iteration(cfg, depth_weight, boundary_weight, dp)
     return _train_loop(cfg, dataset, iterate, logger, max_iterations, on_epoch_end, dev,
-                       aux_heads=aux)
+                       aux_heads=aux, dp=dp)

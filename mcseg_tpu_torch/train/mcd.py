@@ -22,6 +22,14 @@ auxiliary heads in step B) gets a zero gradient rather than none, so that
 its optimizer still applies weight decay (and momentum) to it, as optax
 does to its whole tree in the JAX step. Steps B and C are shared with the
 multitask trainer (``train/multitask.py``).
+
+Under a data-parallel context ``dp`` (``parallel.mesh``) every loss is the
+loss of the group's global batch, G's BatchNorm statistics are global, and
+the gradients are averaged over the ranks (``all_reduce_grads``) before
+every optimizer step: A over opt_g and opt_f, B over opt_f, C over opt_g
+(each of the ``num_k`` times). The modules are not wrapped in
+``DistributedDataParallel``, whose hooks assume one backward per forward:
+step B runs G under ``no_grad`` and step C takes G's gradients alone.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from mcseg_tpu_torch.core.config import TrainConfig
 from mcseg_tpu_torch.core.device import compute_context
 from mcseg_tpu_torch.losses.discrepancy import get_prob_distance_criterion
 from mcseg_tpu_torch.losses.seg import cross_entropy_2d
+from mcseg_tpu_torch.parallel.mesh import DataParallel, all_reduce_grads
 from mcseg_tpu_torch.train.optim import make_lr_schedule, set_lr
 from mcseg_tpu_torch.train.state import MCDTrainState
 
@@ -48,10 +57,12 @@ def zero_missing_grads(opt: torch.optim.Optimizer) -> None:
 
 
 def step_b(state: MCDTrainState, f2: nn.Module, xs: torch.Tensor, ys: torch.Tensor,
-           xt: torch.Tensor, disc: Callable, dtype: torch.dtype) -> torch.Tensor:
+           xt: torch.Tensor, disc: Callable, dtype: torch.dtype,
+           dp: Optional[DataParallel] = None) -> torch.Tensor:
     """STEP B: maximize the discrepancy on the target wrt opt_f's heads
     while keeping the source supervised; G runs in train mode under
-    ``no_grad``. Returns the loss, detached."""
+    ``no_grad``. ``disc`` must reduce over ``dp``'s global batch. Returns
+    the loss, detached."""
     f1 = state.f1
     state.opt_f.zero_grad(set_to_none=True)
     with compute_context(dtype, xs.device):
@@ -60,18 +71,20 @@ def step_b(state: MCDTrainState, f2: nn.Module, xs: torch.Tensor, ys: torch.Tens
             feat_t = state.g(xt)
         o1s, o2s = f1(feat_s), f2(feat_s)
         o1t, o2t = f1(feat_t), f2(feat_t)
-    loss_b = (cross_entropy_2d(o1s, ys) + cross_entropy_2d(o2s, ys)
+    loss_b = (cross_entropy_2d(o1s, ys, dp=dp) + cross_entropy_2d(o2s, ys, dp=dp)
               - disc(o1t, o2t))
     loss_b.backward()
     zero_missing_grads(state.opt_f)
+    all_reduce_grads(dp, state.opt_f)
     state.opt_f.step()
     return loss_b.detach()
 
 
 def step_c(state: MCDTrainState, f2: nn.Module, xt: torch.Tensor, disc: Callable,
-           dtype: torch.dtype, num_k: int) -> torch.Tensor:
+           dtype: torch.dtype, num_k: int, dp: Optional[DataParallel] = None) -> torch.Tensor:
     """STEP C: minimize the discrepancy wrt G only, ``num_k`` times, each
-    with a fresh forward. Returns the last loss, detached."""
+    with a fresh forward (``disc`` over ``dp``'s global batch). Returns the
+    last loss, detached."""
     g, f1 = state.g, state.f1
     g_params = [p for p in g.parameters() if p.requires_grad]
     for _ in range(num_k):
@@ -82,13 +95,15 @@ def step_c(state: MCDTrainState, f2: nn.Module, xt: torch.Tensor, disc: Callable
         grads = torch.autograd.grad(loss_c, g_params)
         for p, grad in zip(g_params, grads):
             p.grad = grad
+        all_reduce_grads(dp, state.opt_g)
         state.opt_g.step()
         del feat_t, o1t, o2t, grads
     return loss_c.detach()
 
 
 def make_mcd_step(cfg: TrainConfig, uses_one_classifier: bool = False,
-                  dtype: torch.dtype = torch.float32) -> Callable:
+                  dtype: torch.dtype = torch.float32,
+                  dp: Optional[DataParallel] = None) -> Callable:
     """``step(state, xs, ys, xt, mark=None) -> metrics``.
 
     ``xs``/``xt`` are the preprocessed source and target inputs, NCHW
@@ -98,8 +113,9 @@ def make_mcd_step(cfg: TrainConfig, uses_one_classifier: bool = False,
     scalar tensors on the device (read them only where the host needs
     them), ``lr`` as a float. ``dtype`` is the activation dtype (bf16 runs
     under autocast). ``mark(name)``, when given, is called after each
-    sub-step ('A', 'B', 'C') for timing."""
-    disc = get_prob_distance_criterion(cfg.d_loss)
+    sub-step ('A', 'B', 'C') for timing. ``dp``: the data-parallel context
+    (the batches are this rank's rows; the losses are the global batch's)."""
+    disc = get_prob_distance_criterion(cfg.d_loss, dp)
     lr_fn = make_lr_schedule(cfg.lr_schedule, cfg.lr, cfg.max_steps, cfg.lr_power)
     num_k = cfg.num_k
 
@@ -119,18 +135,19 @@ def make_mcd_step(cfg: TrainConfig, uses_one_classifier: bool = False,
         with compute_context(dtype, xs.device):
             feat = g(xs)
             o1, o2 = f1(feat), f2(feat)
-        loss_a = cross_entropy_2d(o1, ys) + cross_entropy_2d(o2, ys)
+        loss_a = cross_entropy_2d(o1, ys, dp=dp) + cross_entropy_2d(o2, ys, dp=dp)
         loss_a.backward()
         zero_missing_grads(state.opt_f)
+        all_reduce_grads(dp, state.opt_g, state.opt_f)
         state.opt_g.step()
         state.opt_f.step()
         del feat, o1, o2
         if mark:
             mark("A")
-        loss_b = step_b(state, f2, xs, ys, xt, disc, dtype)
+        loss_b = step_b(state, f2, xs, ys, xt, disc, dtype, dp)
         if mark:
             mark("B")
-        loss_c = step_c(state, f2, xt, disc, dtype, num_k)
+        loss_c = step_c(state, f2, xt, disc, dtype, num_k, dp)
         if mark:
             mark("C")
 

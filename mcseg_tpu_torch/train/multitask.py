@@ -16,6 +16,8 @@ momentum to them, as optax does to its whole tree. As in the JAX trainer,
 the multitask MCD step has no ``uses_one_classifier`` variant. Both steps
 reseed the dropout masks as the other trainers do, though the one trunk
 with dropout, FCN8s, has no multitask heads (``models.factory.get_aux_heads``).
+Under a data-parallel context every loss is the global batch's and the
+gradients are averaged over the ranks before each update (``train/mcd.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from mcseg_tpu_torch.core.device import compute_context
 from mcseg_tpu_torch.losses.discrepancy import get_prob_distance_criterion
 from mcseg_tpu_torch.losses.seg import (
     balanced_bce_2d, berhu_loss, boundary_targets_from_labels, cross_entropy_2d)
+from mcseg_tpu_torch.parallel.mesh import DataParallel, all_reduce_grads
 from mcseg_tpu_torch.train.mcd import step_b, step_c
 from mcseg_tpu_torch.train.optim import make_lr_schedule, set_lr
 from mcseg_tpu_torch.train.state import MCDTrainState
@@ -41,7 +44,8 @@ def aux_head_keys(boundary_weight: float) -> Tuple[str, ...]:
 
 
 def _source_losses(state: MCDTrainState, x, y, depth, depth_weight: float,
-                   boundary_weight: float, dtype: torch.dtype):
+                   boundary_weight: float, dtype: torch.dtype,
+                   dp: Optional[DataParallel] = None):
     """(total, seg, depth, boundary or None) of one source batch, G and
     every head applied once in train mode."""
     with compute_context(dtype, x.device):
@@ -49,32 +53,36 @@ def _source_losses(state: MCDTrainState, x, y, depth, depth_weight: float,
         o1, o2 = state.f1(feat), state.f2(feat)
         d_pred = state.d(feat)
         b_logits = state.b(feat) if state.b is not None else None
-    seg = cross_entropy_2d(o1, y) + cross_entropy_2d(o2, y)
-    dep = berhu_loss(d_pred, depth)
+    seg = cross_entropy_2d(o1, y, dp=dp) + cross_entropy_2d(o2, y, dp=dp)
+    dep = berhu_loss(d_pred, depth, dp=dp)
     aux = depth_weight * dep
     bnd = None
     if b_logits is not None:
-        bnd = balanced_bce_2d(b_logits, *boundary_targets_from_labels(y))
+        bnd = balanced_bce_2d(b_logits, *boundary_targets_from_labels(y), dp=dp)
         aux = aux + boundary_weight * bnd
     return seg + aux, seg, dep, bnd
 
 
-def _update_all(state: MCDTrainState, loss: torch.Tensor) -> None:
+def _update_all(state: MCDTrainState, loss: torch.Tensor,
+                dp: Optional[DataParallel] = None) -> None:
     state.opt_g.zero_grad(set_to_none=True)
     state.opt_f.zero_grad(set_to_none=True)
     loss.backward()
+    all_reduce_grads(dp, state.opt_g, state.opt_f)
     state.opt_g.step()
     state.opt_f.step()
 
 
 def make_multitask_source_step(cfg: TrainConfig, depth_weight: float = 0.5,
                                boundary_weight: float = 0.0,
-                               dtype: torch.dtype = torch.float32) -> Callable:
+                               dtype: torch.dtype = torch.float32,
+                               dp: Optional[DataParallel] = None) -> Callable:
     """``step(state, x, y, depth) -> metrics``: ``x`` the preprocessed
     input NCHW, ``y`` the labels [B,H,W], ``depth`` metres [B,H,W] (pixels
     not finite or <= 0 unsupervised). Updates ``state`` in place; metrics
     ``loss``, ``loss_seg``, ``loss_depth``, ``lr`` and ``loss_boundary``
-    when the state has a boundary head (losses detached on the device)."""
+    when the state has a boundary head (losses detached on the device).
+    ``dp``: the data-parallel context, as in ``train.mcd.make_mcd_step``."""
     lr_fn = make_lr_schedule(cfg.lr_schedule, cfg.lr, cfg.max_steps, cfg.lr_power)
 
     def step(state: MCDTrainState, x, y, depth) -> Dict[str, object]:
@@ -83,8 +91,8 @@ def make_multitask_source_step(cfg: TrainConfig, depth_weight: float = 0.5,
         set_lr(state.opt_f, lr)
         state.reseed_masks()
         loss, seg, dep, bnd = _source_losses(state, x, y, depth, depth_weight,
-                                             boundary_weight, dtype)
-        _update_all(state, loss)
+                                             boundary_weight, dtype, dp)
+        _update_all(state, loss, dp)
         state.step += 1
         metrics = {"loss": loss.detach(), "loss_seg": seg.detach(),
                    "loss_depth": dep.detach(), "lr": lr}
@@ -97,14 +105,16 @@ def make_multitask_source_step(cfg: TrainConfig, depth_weight: float = 0.5,
 
 def make_multitask_mcd_step(cfg: TrainConfig, depth_weight: float = 0.5,
                             boundary_weight: float = 0.0,
-                            dtype: torch.dtype = torch.float32) -> Callable:
+                            dtype: torch.dtype = torch.float32,
+                            dp: Optional[DataParallel] = None) -> Callable:
     """``step(state, xs, ys, ds, xt, mark=None) -> metrics``: MCD A / B /
     C x num_k with the auxiliary losses in step A (``ds`` the source depth
     in metres [B,H,W]). Metrics ``loss_source`` (the whole step-A loss),
     ``loss_seg``, ``loss_depth``, ``loss_b``, ``loss_dis``, ``lr`` and
     ``loss_boundary`` when the state has a boundary head. ``mark(name)``,
-    when given, is called after each sub-step ('A', 'B', 'C')."""
-    disc = get_prob_distance_criterion(cfg.d_loss)
+    when given, is called after each sub-step ('A', 'B', 'C'). ``dp``: the
+    data-parallel context."""
+    disc = get_prob_distance_criterion(cfg.d_loss, dp)
     lr_fn = make_lr_schedule(cfg.lr_schedule, cfg.lr, cfg.max_steps, cfg.lr_power)
 
     def step(state: MCDTrainState, xs, ys, ds, xt,
@@ -114,14 +124,14 @@ def make_multitask_mcd_step(cfg: TrainConfig, depth_weight: float = 0.5,
         set_lr(state.opt_f, lr)
         state.reseed_masks()
         loss_a, seg, dep, bnd = _source_losses(state, xs, ys, ds, depth_weight,
-                                               boundary_weight, dtype)
-        _update_all(state, loss_a)
+                                               boundary_weight, dtype, dp)
+        _update_all(state, loss_a, dp)
         if mark:
             mark("A")
-        loss_b = step_b(state, state.f2, xs, ys, xt, disc, dtype)
+        loss_b = step_b(state, state.f2, xs, ys, xt, disc, dtype, dp)
         if mark:
             mark("B")
-        loss_c = step_c(state, state.f2, xt, disc, dtype, cfg.num_k)
+        loss_c = step_c(state, state.f2, xt, disc, dtype, cfg.num_k, dp)
         if mark:
             mark("C")
         state.step += 1

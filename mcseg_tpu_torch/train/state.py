@@ -19,6 +19,10 @@ eager step updates in place:
   masks       the dropout mask source of G (``models.fcn_vgg.SeededMasks``
               on the device, seeded from (seed, step)), or None for a
               trunk without dropout; the steps call ``reseed_masks`` first
+
+Under data parallelism every rank holds a replica: ``set_data_parallel``
+makes G's BatchNorm and dropout masks those of the global batch, and
+``broadcast_from_primary`` copies rank 0's replica to every rank.
 """
 
 from __future__ import annotations
@@ -33,8 +37,10 @@ from mcseg_tpu_torch.core.config import ModelConfig, TrainConfig
 from mcseg_tpu_torch.core.device import compute_dtype, resolve_device
 from mcseg_tpu_torch.models.factory import (
     Params, get_aux_heads, get_models, init_aux_heads, init_models)
+from mcseg_tpu_torch.models.drn import set_data_parallel
 from mcseg_tpu_torch.models.fcn_vgg import (
     MaskSource, SeededMasks, dropout_layers, set_mask_source)
+from mcseg_tpu_torch.parallel.mesh import DataParallel, broadcast_tensors
 from mcseg_tpu_torch.train.optim import get_optimizer
 
 
@@ -65,6 +71,31 @@ class MCDTrainState:
         """Make ``source`` G's dropout mask source."""
         set_mask_source(self.g, source)
         self.masks = source
+
+    def set_data_parallel(self, dp: Optional[DataParallel]) -> None:
+        """Make the BatchNorm statistics of every module, and G's seeded
+        dropout masks, those of ``dp``'s global batch (None: the local
+        batch's)."""
+        for m in self.modules().values():
+            set_data_parallel(m, dp)
+        if isinstance(self.masks, SeededMasks):
+            self.masks.data_parallel = dp
+
+    def broadcast_from_primary(self, dp: Optional[DataParallel]) -> None:
+        """Overwrite this replica with rank 0's: parameters, BatchNorm
+        statistics, both optimizers' states and ``step`` (a no-op without a
+        group). Every rank must hold states of the same structure."""
+        if dp is None:
+            return
+        tensors = [t for m in self.modules().values() for t in m.state_dict().values()]
+        for opt in (self.opt_g, self.opt_f):
+            for group in opt.param_groups:
+                for p in group["params"]:
+                    tensors += [v for _, v in sorted(opt.state.get(p, {}).items())
+                                if isinstance(v, torch.Tensor)]
+        step = torch.tensor([self.step], dtype=torch.int64)
+        broadcast_tensors(dp, tensors + [step])
+        self.step = int(step.item())
 
     def reseed_masks(self) -> None:
         """Seed this iteration's dropout masks from the step (a no-op

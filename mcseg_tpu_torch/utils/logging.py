@@ -12,10 +12,16 @@ import os
 import time
 from typing import Any, Dict, Optional
 
+from mcseg_tpu_torch.parallel.multihost import is_primary
+
 
 def make_run_logger(train_cfg) -> "JsonlLogger":
     """The run directory's log: ``<out_dir>/train_log.jsonl``, plus
-    TensorBoard scalars under ``train_cfg.tb_dir`` when it is set."""
+    TensorBoard scalars under ``train_cfg.tb_dir`` when it is set. On a
+    rank other than 0 of a data-parallel job (whose metrics are rank 0's)
+    a silent logger that writes nothing."""
+    if not is_primary():
+        return JsonlLogger(path=None, echo=False)
     return JsonlLogger(path=os.path.join(train_cfg.out_dir, "train_log.jsonl"),
                        tb_dir=train_cfg.tb_dir or None)
 

@@ -1,7 +1,8 @@
 """Shared helpers of the JAX-vs-port parity tests (tests/test_torch_*.py):
 seeded JAX parameters with non-trivial BatchNorm, a JAX float64 block, the
 train preprocess's random draws as JAX makes them, the dropout masks of
-the JAX VGG trunk, and the JAX FCN8s head lifted to float64."""
+the JAX VGG trunk, the JAX FCN8s head lifted to float64, and the JAX
+training loops fed the batches a port loop preprocessed."""
 
 import contextlib
 import dataclasses
@@ -155,3 +156,67 @@ def flax_vgg_dropout_masks(keys, shape):
     ones = jnp.ones(shape)
     return [torch.from_numpy(np.asarray(y) > 0).permute(0, 3, 1, 2)
             for k in keys for y in _Probe().apply({}, ones, rngs={"dropout": k})]
+
+
+@contextlib.contextmanager
+def recording_train_inputs(loops_module):
+    """Within the block, every train preprocess that the port's
+    ``loops_module`` builds records its outputs, as numpy arrays in call
+    order, into the yielded list (source and target alternate per
+    iteration)."""
+    import pytest
+
+    recorded = []
+    build = loops_module.make_train_preprocess
+
+    def recording(*args, **kwargs):
+        pp = build(*args, **kwargs)
+
+        def preprocess(*a):
+            out = pp(*a)
+            recorded.append([None if t is None else t.detach().cpu().numpy() for t in out])
+            return out
+
+        return preprocess
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(loops_module, "make_train_preprocess", recording)
+        yield recorded
+
+
+@contextlib.contextmanager
+def jax_loops_fed(recorded):
+    """Within the block, the JAX package's training loops train on the
+    batches ``recording_train_inputs`` recorded instead of decoding and
+    preprocessing their own: the loops' input stream yields those batches
+    (images as float64, sharded on the loop's mesh) and their train
+    preprocess passes a batch through. The port's preprocess makes float32
+    (its kernel's output), JAX's float64 ones differ from it by float32
+    rounding; fed the same batches, the loops' steps, schedules and
+    bookkeeping are held to each other. JAX's modules stay as they are."""
+    import pytest
+
+    from mcseg_tpu.parallel.mesh import shard_batch
+    from mcseg_tpu.train import loops as jax_loops
+
+    def as_batch(out):
+        img, label = out[0], out[1]
+        batch = {"image": img.astype(np.float64),
+                 "label": np.zeros(img.shape[:3], np.int32) if label is None else label}
+        if len(out) > 2:
+            batch["depth"] = out[2].astype(np.float64)
+        return batch
+
+    pairs = [(as_batch(s), as_batch(t)) for s, t in zip(recorded[::2], recorded[1::2])]
+
+    def make_train_preprocess(cfg, with_depth=False, compute_dtype=None):
+        keys = ("image", "label", "depth") if with_depth else ("image", "label")
+        return lambda raw, key, remap_table=None: tuple(raw[k] for k in keys)
+
+    def input_stream(dataset, mesh, cfg, start_epoch):
+        return iter([(shard_batch(mesh, s), shard_batch(mesh, t)) for s, t in pairs])
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_loops, "make_train_preprocess", make_train_preprocess)
+        mp.setattr(jax_loops, "_input_stream", input_stream)
+        yield

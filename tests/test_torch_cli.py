@@ -3,8 +3,9 @@ JAX package's, and end to end on the CPU.
 
 Parsing: the same reference command line gives the same ExperimentConfig
 dict in both packages, the testing parser the same namespace, and a bad
-choice is refused by both. Flags that change what a run produces and that
-the port has not ported raise ``NotImplementedError``. ``--resume`` checks
+choice is refused by both. A flag that changes what a run produces and
+that the port has not ported (``--spatial_devices``) raises
+``NotImplementedError``; the parallelism flags run a gloo group of one. ``--resume`` checks
 the checkpoint's structure first, with JAX's message.
 
 End to end: drn_d_14, 40 classes, float32, batch 2 of ``synthetic`` ->
@@ -90,18 +91,72 @@ def test_testing_parser_and_bad_choices_match_jax():
 
 
 @pytest.mark.parametrize("main,argv", [
-    (adapt_train.main, "synthetic synthetic_shifted --multihost"),
-    (source_train.main, "synthetic --coordinator localhost:1234"),
-    (source_train.main, "synthetic --num_processes 2"),
-    (adapt_train.main, "synthetic synthetic_shifted --process_id 0"),
     (source_train.main, "synthetic --spatial_devices 2"),
-    (source_test.main, "ckpt --all_devices"),
 ], ids=lambda v: v.split()[-1] if isinstance(v, str) else None)
 def test_unported_output_flags_raise(main, argv, tmp_path):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item \d"):
-        main(argv.split() + ["--out_dir", str(tmp_path / "run")] if "train" in main.__module__
-             else argv.split(), device="cpu")
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item 10 "
+                                                  r"\(spatial partitioning\)"):
+        main(argv.split() + ["--out_dir", str(tmp_path / "run")], device="cpu")
     assert not os.path.exists(tmp_path / "run")  # refused before anything was written
+
+
+def _group_flags(port):
+    return ["--coordinator", f"127.0.0.1:{port}", "--num_processes", "1", "--process_id", "0"]
+
+
+@pytest.mark.parametrize("flag", ["multihost", "coordinator", "num_processes", "process_id",
+                                  "all_devices"])
+def test_group_flags_work_on_the_cpu(flag, tmp_path, monkeypatch):
+    """The parallelism flags through their command's ``main(..., device="cpu")``,
+    each run a gloo group of one rank that the command joins and leaves:
+    ``--multihost`` from torchrun's variables; ``--coordinator`` with
+    ``--num_processes`` and ``--process_id`` (the loss of the group's
+    global batch, here the one rank's, matches the same command without a
+    group within float32 rounding); ``--num_processes`` without
+    ``--coordinator`` refused before anything is written; ``--process_id``
+    with the epoch-eval hook scoring under the group; ``--all_devices``
+    scoring on every device of the process (here the one CPU) as plain
+    scoring does."""
+    import torch.distributed as dist
+
+    from _torch_parallel_worker import free_port
+
+    run = tmp_path / "run"
+    if flag == "multihost":
+        for k, v in dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()), RANK="0",
+                         WORLD_SIZE="1", LOCAL_RANK="0").items():
+            monkeypatch.setenv(k, v)
+        state = _adapt(run, 1, "--multihost")
+        assert state.step == 1
+    elif flag == "coordinator":
+        state = source_train.main(["synthetic", *_argv(run, 1), *_group_flags(free_port())],
+                                  device="cpu")
+        plain = source_train.main(["synthetic", *_argv(tmp_path / "plain", 1)], device="cpu")
+        got, want = (_logged_losses(d, ("loss",)) for d in (run, tmp_path / "plain"))
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+        assert state.step == plain.step == 1
+    elif flag == "num_processes":
+        with pytest.raises(ValueError, match="need --coordinator"):
+            source_train.main(["synthetic", *_argv(run, 1), "--num_processes", "1"],
+                              device="cpu")
+        assert not os.path.exists(run)
+    elif flag == "process_id":
+        state = _adapt(run, 1, "--eval_every_epochs", "1", *_group_flags(free_port()))
+        with open(run / "train_log.jsonl") as f:
+            evals = [r for r in map(json.loads, f) if "val_miou" in r]
+        assert state.step == 1 and len(evals) == 1 and np.isfinite(evals[0]["val_miou"])
+    else:
+        _adapt(run, 1)
+        plain = source_test.main([str(run / "last")], device="cpu")
+        assert source_test.main([str(run / "last"), "--all_devices"], device="cpu") == plain
+    assert not dist.is_initialized()  # the command left its group
+    if flag in ("multihost", "coordinator", "process_id"):
+        assert {"args.json", "last.pt", "train_log.jsonl"} <= set(os.listdir(run))
+
+
+def _logged_losses(run, keys):
+    with open(os.path.join(run, "train_log.jsonl")) as f:
+        return np.array([[r[k] for k in keys] for r in map(json.loads, f) if "step" in r])
 
 
 @pytest.fixture(scope="module")

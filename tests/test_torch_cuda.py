@@ -1,4 +1,5 @@
-"""CUDA kernels of the port against their plain PyTorch versions, on the card.
+"""CUDA kernels of the port against their plain PyTorch versions, on the card,
+and torch's native SyncBatchNorm ops against the port's plain twin.
 
 Imports neither JAX nor the JAX package, so it runs where only PyTorch is
 installed; ``tests/conftest.py`` imports JAX, hence on the card:
@@ -250,3 +251,72 @@ def test_jax_checkpoint_from_the_card_reads_back_bit_equal(cuda_device, tmp_path
     bf = torch.randn(3, 5, device="cuda").to(torch.bfloat16)
     got = msgpack_compat.restore(msgpack_compat.serialize({"x": bf}))["x"]
     assert got.dtype == torch.bfloat16 and torch.equal(got, bf.cpu())
+
+
+@pytest.fixture
+def one_rank_group(cuda_device):
+    """A one-rank gloo group on the card, left at the end."""
+    import socket
+
+    from mcseg_tpu_torch.parallel import multihost
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dp = multihost.initialize(f"127.0.0.1:{port}", 1, 0, "cuda:0", backend="gloo")
+    try:
+        yield dp
+    finally:
+        multihost.shutdown()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bound", [(torch.float64, 1e-12), (torch.float32, 1e-4),
+                                         (torch.bfloat16, 2.0 ** -7)])
+def test_native_sync_batch_norm_matches_its_twin(one_rank_group, dtype, bound):
+    """torch's native SyncBatchNorm ops against the plain twin: output,
+    running statistics and the three gradients, relative to each one's
+    largest magnitude (float32: sums in another order; bf16: the output
+    may round to the neighbouring bf16 value)."""
+    from mcseg_tpu_torch.parallel import sync_bn
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = (torch.randn(4, 16, 24, 40, generator=gen, device="cuda") * 2 + 1).to(dtype)
+    x = x.contiguous(memory_format=torch.channels_last)
+    up = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+    pdt = torch.float64 if dtype == torch.float64 else torch.float32
+    w = (torch.rand(16, generator=gen, device="cuda") + 0.5).to(pdt)
+    b = (torch.randn(16, generator=gen, device="cuda") * 0.1).to(pdt)
+
+    def run(fn):
+        xs, ws, bs = (t.clone().requires_grad_(True) for t in (x, w, b))
+        rm, rv = torch.zeros(16, device="cuda", dtype=pdt), torch.ones(16, device="cuda", dtype=pdt)
+        y = fn(xs, ws, bs, rm, rv, 0.1, 1e-5, one_rank_group)
+        y.backward(up)
+        return [y, rm, rv, xs.grad, ws.grad, bs.grad]
+
+    calls = sync_bn.sync_batch_norm_native.calls
+    got = run(sync_bn.sync_batch_norm_native)
+    want = run(sync_bn.sync_batch_norm_reference)
+    assert sync_bn.sync_batch_norm_native.calls == calls + 1
+    assert got[0].dtype == dtype
+    for g, v in zip(got, want):
+        err = float((g.double() - v.double()).abs().max() / v.double().abs().max())
+        assert err <= bound, err
+
+
+@pytest.mark.cuda
+def test_batch_norm_under_a_one_rank_group_is_plain_batch_norm(one_rank_group):
+    """``models.drn.BatchNorm2d`` with the group's context (native ops)
+    against cuDNN's BatchNorm without one, float64: the same output and
+    the same flax-style running statistics."""
+    from mcseg_tpu_torch.models.drn import BatchNorm2d, set_data_parallel
+
+    x = torch.randn(4, 8, 12, 10, device="cuda", dtype=torch.float64) * 3 + 1
+    plain, synced = (BatchNorm2d(8).to("cuda", torch.float64) for _ in range(2))
+    set_data_parallel(synced, one_rank_group)
+    for _ in range(2):
+        torch.testing.assert_close(synced(x), plain(x), rtol=1e-12, atol=1e-12)
+    for name in ("running_mean", "running_var", "num_batches_tracked"):
+        torch.testing.assert_close(getattr(synced, name), getattr(plain, name),
+                                   rtol=1e-12, atol=1e-12)

@@ -2,7 +2,8 @@
 (the command-line entry points and their console-script shims included)
 loads neither ``jax`` nor ``mcseg_tpu``, nor PIL (the readers import it
 only on their fallback route), builds nothing (registering the normalize
-kernel's custom op included), and its entry points (serving and its export,
+kernel's custom op included), joins no process group (``parallel/``), and
+its entry points (serving and its export,
 evaluation, the three trainers, the five commands, the serving bench, the
 reference import, ``evaluate_preds`` and ``parity_eval``) refuse to run on
 a CUDA device that is not there (no silent CPU fallback).
@@ -41,7 +42,11 @@ assert {"mcseg_tpu_torch._scripts", "mcseg_tpu_torch.cli.adapt_train",
         "mcseg_tpu_torch.tools.bench_serving", "mcseg_tpu_torch.utils.msgpack_compat",
         "mcseg_tpu_torch.utils.torch_import", "mcseg_tpu_torch.cli.import_torch",
         "mcseg_tpu_torch.cli.evaluate_preds", "mcseg_tpu_torch.tools.make_result_sheet",
-        "mcseg_tpu_torch.tools.summarize_run", "mcseg_tpu_torch.tools.parity_eval"} <= set(mods), mods
+        "mcseg_tpu_torch.tools.summarize_run", "mcseg_tpu_torch.tools.parity_eval",
+        "mcseg_tpu_torch.parallel.mesh", "mcseg_tpu_torch.parallel.multihost",
+        "mcseg_tpu_torch.parallel.sync_bn"} <= set(mods), mods
+import torch.distributed as dist
+assert not dist.is_available() or not dist.is_initialized()  # no process group at import
 from mcseg_tpu_torch.utils import cuda_build
 assert cuda_build.load.cache_info().currsize == 0  # registering the op built nothing
 assert hasattr(torch.ops.mcseg, "normalize_stack")
