@@ -37,8 +37,13 @@ and ``make_result_sheet`` on the dumps, the state through a JAX
 ``parallel``): ``adapt_train`` at full width as a one-rank NCCL group,
 timed and profiled, two ranks sharing the card held to one process in
 float64, torch's native SyncBatchNorm ops held to the port's plain twin,
-and ``adapt_test --all_devices``; and it checks that each path launched
-the kernels. Every phase prints one JSON line
+and ``adapt_test --all_devices``; then spatial partitioning (phase
+``spatial``): HHA's batch invariance, ranks sharing the card that each hold
+a row block of every activation held to one process in float64 (1x2 and
+1x4 layouts), ``adapt_train --spatial_devices 2`` at full width as two
+ranks beside one process (peak memory per rank) and
+``tools.spatial_memory_table``; and it checks that each path launched the
+kernels. Every phase prints one JSON line
 and any failure raises (exit code != 0), a ptxas spill included. Kernel
 times are L2-cold, as the serving path finds its inputs: each timing
 rotates over input sets that together move 3x the 50 MB L2, and a reading
@@ -2437,22 +2442,20 @@ def _one_rank_job(arg):
 
 
 def _two_rank_config(out_dir):
-    """Phase ``parallel`` (b): drn_d_22 in float64 at 64x48, RGB, global
-    batch 8, num_k 2, 3 MCD iterations (24 samples make one epoch). RGB
-    because its train preprocess is elementwise: HHA's float32 per-image
-    sums round differently at batch 4 and 8 on the card (CUDA splits a
-    reduction by its output count), and three MCD iterations amplify that
-    1e-7 input difference past 1e-2 (0.77 relative in G's momentum on an
-    H100)."""
+    """Phase ``parallel`` (b): drn_d_22 in float64 at 64x48, RGB+HHA from
+    depth, global batch 8, num_k 2, 3 MCD iterations (24 samples make one
+    epoch). Each rank encodes HHA for its 4 images and one process for 8:
+    the encoder is batch-invariant bit for bit (its Gram sums are exact;
+    phase ``spatial`` checks it), so the ranks see one process's inputs."""
     from mcseg_tpu_torch.core.config import (
         DataConfig, ExperimentConfig, ModelConfig, TrainConfig)
 
     return ExperimentConfig(
-        model=ModelConfig(net="drn_d_22", input_ch=3, n_class=40, dtype="float64",
+        model=ModelConfig(net="drn_d_22", input_ch=6, n_class=40, dtype="float64",
                           upsample="convt"),
         data=DataConfig(src_dataset="synthetic", tgt_dataset="synthetic_shifted",
                         batch_size=B, train_img_shape=(64, 48), test_img_shape=(64, 48),
-                        input_ch=3, max_samples=3 * B, num_workers=0),
+                        input_ch=6, max_samples=3 * B, num_workers=0),
         train=TrainConfig(lr=0.01, num_k=2, epochs=1, max_steps=100, log_every=1, seed=0,
                           out_dir=out_dir))
 
@@ -2483,14 +2486,21 @@ def _two_rank_job(rank, port, out_dir):
         multihost.shutdown()
 
 
-def _job(code):
-    """Start ``python3 -c code`` from the checkout; returns its Popen."""
+def _job(code, env=None):
+    """Start ``python3 -c code`` from the checkout (with ``env`` added to
+    the environment); returns its Popen."""
     return subprocess.Popen([sys.executable, "-c", code], cwd=HERE, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
+                            stderr=subprocess.PIPE, text=True,
+                            env=None if env is None else {**os.environ, **env})
 
 
 def _finish(proc, what, timeout=600):
-    out, err = proc.communicate(timeout=timeout)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+        raise AssertionError(f"{what}: no end within {timeout} s\n{out[-2000:]}\n{err[-3000:]}")
     if proc.returncode != 0:
         raise AssertionError(f"{what}: exit {proc.returncode}\n{out[-2000:]}\n{err[-3000:]}")
     return json.loads(out.strip().splitlines()[-1])
@@ -2501,8 +2511,9 @@ def phase_parallel(smi_line, train_ms=None):
     (DRN-D-38, RGB+HHA, 40 classes, 640x480, batch 8, bf16, num_k 4) as a
     one-rank NCCL group (``--coordinator``), ms per iteration beside the
     same command without the group in the same process and beside phase
-    ``train``'s iteration, and the kernel's 2 launches per iteration; (b) 2 ranks sharing the card (gloo) against 1 process in
-    float64, drn_d_22 RGB at 64x48, batch 8, 3 MCD iterations, within 1e-9;
+    ``train``'s iteration, and the kernel's 2 launches per iteration; (b) 2
+    ranks sharing the card (gloo) against 1 process in float64, drn_d_22
+    RGB+HHA at 64x48, batch 8, 3 MCD iterations, within 1e-9;
     (c) the native SyncBatchNorm ops against their twin at DRN level 1's
     full-width shape in float32 and bf16; (d) ``adapt_test --all_devices``
     (every card of the process) against plain scoring of (a)'s checkpoint,
@@ -2581,7 +2592,7 @@ def phase_parallel(smi_line, train_ms=None):
                     "through its main, card-resident corpus; no_group: the same command "
                     "without the group flags in the same process, just before"},
         "two_ranks_one_card": {
-            "backend": ranks[0]["backend"], "net": "drn_d_22", "input_ch": 3, "dtype": "float64",
+            "backend": ranks[0]["backend"], "net": "drn_d_22", "input_ch": 6, "dtype": "float64",
             "batch": B, "hw": [48, 64], "iterations": [r["iterations"] for r in ranks],
             "launches_per_rank": [r["launches"] for r in ranks],
             "single_process_launches": single_launches,
@@ -2621,6 +2632,396 @@ def phase_parallel(smi_line, train_ms=None):
     return launches
 
 
+# --- phase spatial -----------------------------------------------------------
+
+def _hha_batch_invariance(sizes=((48, 64), (H, W)), n=8):
+    """Is one image's HHA the same at batch 1, 4 and 8 on the card? The
+    whole encoder, then each suspect apart on the same planes: the float32
+    per-image sums behind the gravity's Gram matrices (``torch.sum`` over
+    (H, W) of the six normal products), the floor's ``amin`` and
+    ``torch.linalg.eigh`` of the 3x3 Gram differences, each beside two
+    candidate repairs (the sums in float64 and as int64 fixed point, eigh in
+    float64). For each: the first 4 images at batch 4 and at batch 1
+    against batch ``n``, the largest difference and whether bit-equal."""
+    import torch
+
+    from mcseg_tpu_torch.core.config import DataConfig
+    from mcseg_tpu_torch.data.datasets import get_dataset, stack_samples
+    from mcseg_tpu_torch.ops import hha
+    from mcseg_tpu_torch.ops.preprocess import depth_to_meters
+
+    def compare(fn, x):
+        full = fn(x)[:4]
+        got = {"batch4": fn(x[:4]), "batch1": torch.cat([fn(x[i:i + 1]) for i in range(4)])}
+        return {k: {"max_abs_diff": float((v.double() - full.double()).abs().max()),
+                    "bit_equal": bool(torch.equal(v, full))} for k, v in got.items()}
+
+    report = {}
+    for h, w in sizes:
+        cfg = DataConfig(train_img_shape=(w, h), test_img_shape=(w, h))
+        raw = stack_samples(get_dataset("synthetic_shifted", cfg, "train"), range(n))
+        depth = depth_to_meters(torch.as_tensor(raw["depth"]).to(DEVICE))
+        valid = torch.isfinite(depth) & (depth > 1e-3)
+        d = torch.where(valid, depth, 1e3)
+        points = hha._point_cloud(d, hha.default_intrinsics(h, w))
+        nx, ny, nz = hha._normals(points)
+        thr, perp = hha._THRESHOLDS[0]
+        ang = torch.arccos(ny.abs().clamp(-1.0, 1.0))  # the first round: g = +Y
+        w2 = valid.to(torch.float32)
+        products = [p * w2 for p in (nx * nx, nx * ny, nx * nz, ny * ny, ny * nz, nz * nz)]
+        planes = {sel: torch.stack([p * sel_mask for p in products], 1)
+                  for sel, sel_mask in (("par", (ang < thr).to(torch.float32)),
+                                        ("perp", (ang > perp).to(torch.float32)))}
+
+        def sums(p, how):
+            if how == "float64":
+                p = p.double()
+            elif how == "int64_fixed_point":
+                p = (p.double() * 2.0 ** 40).to(torch.int64)
+            return p.sum(dim=(2, 3))
+
+        gram = {}
+        for sel, p in planes.items():
+            s = sums(p, "float32")
+            xx, xy, xz, yy, yz, zz = s.unbind(1)
+            gram[sel] = torch.stack([torch.stack([xx, xy, xz], -1),
+                                     torch.stack([xy, yy, yz], -1),
+                                     torch.stack([xz, yz, zz], -1)], -2)
+        m = gram["par"] - gram["perp"]
+        height = points[1]
+        report[f"{h}x{w}"] = {
+            "depth_to_hha_batch": compare(hha.depth_to_hha_batch, depth),
+            "gram_sums_float32": compare(lambda p: sums(p, "float32"), planes["par"]),
+            "gram_sums_float64": compare(lambda p: sums(p, "float64"), planes["par"]),
+            "gram_sums_int64_fixed_point": compare(lambda p: sums(p, "int64_fixed_point"),
+                                                   planes["par"]),
+            "floor_amin": compare(lambda t: t.amin(dim=(1, 2)),
+                                  torch.where(valid, height, float("inf"))),
+            "eigh_float32": compare(lambda a: torch.linalg.eigh(a)[1][..., -1], m),
+            "eigh_float64": compare(lambda a: torch.linalg.eigh(a.double())[1][..., -1], m),
+        }
+    return report
+
+
+def _gloo_cuda_probe_job(rank, port):
+    """One of two gloo ranks sharing the card: which collectives take CUDA
+    tensors (all-reduce in float32, bf16 and float64, all-gather, a
+    sub-group's all-reduce, send/recv). Prints one JSON line; send/recv
+    last, under a 60 s group timeout."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                            rank=rank, timeout=datetime.timedelta(seconds=60))
+    out = {"rank": rank}
+
+    def attempt(name, fn):
+        try:
+            out[name] = fn()
+        except Exception as e:  # recorded: which collectives gloo refuses is the finding
+            out[name] = f"refused: {type(e).__name__}: {str(e)[:160]}"
+
+    def reduce(dtype):
+        x = torch.full((4,), rank + 1.0, device="cuda", dtype=dtype)
+        dist.all_reduce(x)
+        return float(x[0])
+
+    def gather():
+        x = torch.full((4,), rank + 1.0, device="cuda")
+        got = [torch.zeros(4, device="cuda") for _ in range(2)]
+        dist.all_gather(got, x)
+        return [float(g[0]) for g in got]
+
+    def sub_group():
+        group = dist.new_group([0, 1])
+        x = torch.full((4,), rank + 1.0, device="cuda")
+        dist.all_reduce(x, group=group)
+        return float(x[0])
+
+    def send_recv():
+        x = torch.full((4,), 7.0, device="cuda") if rank == 0 else torch.zeros(4, device="cuda")
+        if rank == 0:
+            dist.send(x, 1)
+        else:
+            dist.recv(x, 0)
+        torch.cuda.synchronize()
+        return float(x[0])
+
+    for dt in (torch.float32, torch.bfloat16, torch.float64):
+        attempt(f"all_reduce_{str(dt).split('.')[-1]}", lambda: reduce(dt))
+    attempt("all_gather", gather)
+    attempt("new_group_all_reduce", sub_group)
+    attempt("send_recv", send_recv)
+    print(json.dumps(out), flush=True)
+    dist.destroy_process_group()
+
+
+def _gloo_cuda_probe():
+    port = _free_port()
+    procs = [_job(f"import chip_smoke as c; c._gloo_cuda_probe_job({r}, {port})")
+             for r in range(2)]
+    return [_finish(p, f"gloo probe rank {r}", timeout=180) for r, p in enumerate(procs)]
+
+
+SPATIAL_BOUND = 1e-9  # float64: ranks holding row blocks against 1 process, relative
+SPATIAL_ITERATIONS = 3
+# (a): (data blocks x row blocks) layouts of ranks sharing the card, float64
+SPATIAL_LAYOUTS = ({"space": 2, "hw": (48, 64), "batch": 4},
+                   {"space": 4, "hw": (32, 64), "batch": 4})
+SPATIAL_FIT_BATCHES = "8,16,24"  # (c) --mode fit at 640x480, well inside 80 GB
+# (c) beside the card's table: the JAX package's on a TPU v5e (15.75 GB HBM),
+# XLA's compile-time numbers, docs/ARCHITECTURE.md:381-399 (not the port's)
+JAX_V5E_TABLE = {
+    "fit_drn_d_38_rgb_hha_mcd_num_k_4_bf16": {
+        "640x480 batch 24": "7.0 GB", "640x480 batch 96": "15.9 GB",
+        "640x480 batch 128": "18.8 GB needed: OOM at compile",
+        "1024x512 batch 16": "7.9 GB", "1024x512 batch 48": "15.3 GB",
+        "1024x512 batch 96": "37.9 GB needed: OOM at compile"},
+    "spatial_2048x1024_temp_per_device_8_device_cpu_mesh": {
+        "1": "5.77 GB", "2": "4.38 GB", "4": "3.47 GB", "8": "3.04 GB"}}
+
+
+def _spatial_config(out_dir, hw, batch):
+    """Phase ``spatial`` (a): drn_d_22 in float64, RGB+HHA from depth, 40
+    classes, convt heads, ``num_k`` 2, SPATIAL_ITERATIONS MCD iterations of
+    global batch ``batch`` at ``hw`` (H, W) (one epoch)."""
+    from mcseg_tpu_torch.core.config import (
+        DataConfig, ExperimentConfig, ModelConfig, TrainConfig)
+
+    return ExperimentConfig(
+        model=ModelConfig(net="drn_d_22", input_ch=6, n_class=40, dtype="float64",
+                          upsample="convt"),
+        data=DataConfig(src_dataset="synthetic", tgt_dataset="synthetic_shifted",
+                        batch_size=batch, train_img_shape=(hw[1], hw[0]),
+                        test_img_shape=(hw[1], hw[0]), input_ch=6,
+                        max_samples=SPATIAL_ITERATIONS * batch, num_workers=0),
+        train=TrainConfig(lr=0.01, num_k=2, epochs=1, max_steps=100, log_every=1, seed=0,
+                          out_dir=out_dir))
+
+
+def _spatial_rank_job(rank, layout, port, out_dir):
+    """One of ``layout["space"]`` ranks sharing the card through gloo, in
+    one data block of that many row blocks: ``train_adapt`` of
+    ``_spatial_config``; writes its state to ``out_dir/state<rank>.pt``
+    and prints one JSON line."""
+    import torch
+
+    from mcseg_tpu_torch.ops.normalize import fused_normalize_stack
+    from mcseg_tpu_torch.parallel import multihost
+    from mcseg_tpu_torch.train.loops import train_adapt
+
+    space = layout["space"]
+    dp = multihost.initialize(f"127.0.0.1:{port}", space, rank, "cuda:0", backend="gloo",
+                              spatial=space)
+    try:
+        cfg = _spatial_config(os.path.join(out_dir, f"rank{rank}"), layout["hw"],
+                              layout["batch"])
+        fused_normalize_stack.launches = 0
+        state = train_adapt(cfg, dp=dp)
+        torch.save(_state_tensors(state), os.path.join(out_dir, f"state{rank}.pt"))
+        print(json.dumps({"rank": rank, "space_rank": dp.space_rank,
+                          "iterations": state.step,
+                          "launches": fused_normalize_stack.launches,
+                          "backend": torch.distributed.get_backend()}), flush=True)
+    finally:
+        multihost.shutdown()
+
+
+def _spatial_full_job(arg):
+    """Phase ``spatial`` (b): ``adapt_train.main(argv)`` on the card, as
+    rank ``rank`` of 2 sharing it (``--spatial_devices 2`` over gloo) or,
+    with ``rank`` None, in one process; each iteration timed on the host
+    clock around a synchronize (``_timed_main``). Prints one JSON line: the
+    launches, the peak memory, the losses and the tensors training left
+    unchanged."""
+    import torch
+
+    from mcseg_tpu_torch.train import loops
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    argv, rank, port = json.loads(arg)
+    if rank is not None:
+        argv = argv + ["--spatial_devices", "2", "--coordinator", f"127.0.0.1:{port}",
+                       "--num_processes", "2", "--process_id", str(rank)]
+    created = {}
+    create = loops.create_train_state
+
+    def snapshot_create(*a, **kw):
+        state = create(*a, **kw)
+        created["state"] = state
+        created["before"] = _snapshot(state)
+        return state
+
+    loops.create_train_state = snapshot_create
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        report = _timed_main(argv)
+    finally:
+        loops.create_train_state = create
+    report.pop("profile")
+    report["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    report["unchanged"] = _unchanged(created["before"], _snapshot(created["state"]))
+    print(json.dumps(report), flush=True)
+
+
+def _memory_table(mode, *flags):
+    """``python -m mcseg_tpu_torch.tools.spatial_memory_table --mode mode
+    flags``, started; ``_table_rows`` reads its JSON lines."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "mcseg_tpu_torch.tools.spatial_memory_table", "--mode", mode,
+         *flags], cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _table_rows(proc, what, timeout=600):
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: exit {proc.returncode}\n{out[-2000:]}\n{err[-3000:]}")
+    rows = {}
+    for line in out.strip().splitlines():
+        rows.update(json.loads(line))
+    return rows
+
+
+def phase_spatial(smi_line):
+    """Spatial partitioning on the card (``--spatial_devices``): HHA's
+    batch invariance first (one image's HHA at batch 1, 4 and 8, which
+    ranks encoding part of a batch rely on); (a) ranks sharing the card
+    over gloo, each holding a row block of every activation, against 1
+    process in float64 (drn_d_22, RGB+HHA, MCD ``num_k`` 2, 3 iterations)
+    in the layouts 1x2 at 48x64 and 1x4 at 32x64 (whose deepest map keeps
+    one row per block against dilation 4's halo of 4 rows), within 1e-9;
+    (b) ``adapt_train.main --spatial_devices 2`` at full width (DRN-D-38
+    RGB+HHA, 40 classes, 640x480, bf16, ``num_k`` 4, batch 8, 3 iterations)
+    as 2 ranks sharing the card, and the same command in 1 process: finite
+    losses, every tensor moved, 2 kernel launches per rank per iteration,
+    each rank's peak memory against the process's, the ranks' ms per
+    iteration (two ranks contending for one card over gloo: not a rate of
+    the feature);
+    (c) ``tools.spatial_memory_table`` ``--mode fit`` at 640x480 and
+    ``--mode spatial`` at 2048x1024 for 1, 2 and 4 ranks, beside the JAX
+    package's TPU v5e table. (a), (c) and (b)'s one process run together
+    (memory and float64 results do not depend on contention), then (b)'s
+    two ranks alone. Files under build/spatial_*, removed at the end."""
+    import tempfile
+
+    import torch
+
+    from mcseg_tpu_torch.ops.normalize import fused_normalize_stack
+    from mcseg_tpu_torch.train.loops import train_adapt
+
+    t_phase = time.perf_counter()
+    failures = []
+    hha = _hha_batch_invariance()
+    steps = {"hha": time.perf_counter() - t_phase}
+    for size, rep in hha.items():
+        if not all(v["bit_equal"] for v in rep["depth_to_hha_batch"].values()):
+            failures.append(f"HHA at {size} depends on the batch: {rep['depth_to_hha_batch']}")
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build"), prefix="spatial_") as tmp:
+        torch.cuda.empty_cache()
+        jobs = []
+        for i, layout in enumerate(SPATIAL_LAYOUTS):
+            out = os.path.join(tmp, f"a{i}")
+            os.makedirs(out)
+            port = _free_port()
+            jobs.append((layout, out, [
+                _job(f"import chip_smoke as c; c._spatial_rank_job({r}, {layout!r}, {port}, "
+                     f"{out!r})") for r in range(layout["space"])]))
+        fit = _memory_table("fit", "--img_shape", f"{W}x{H}", "--num_k", "4",
+                            "--batches", SPATIAL_FIT_BATCHES)
+        spatial = _memory_table("spatial", "--img_shape", "2048x1024", "--n_devices", "4")
+        # (b)'s command in one process, for its peak memory (its time would
+        # be the contended one: phase train times that iteration alone)
+        argv = (["synthetic", "synthetic_shifted", "--num_k", "4"]
+                + _cli_argv(os.path.join(tmp, "b"))
+                + ["--max_samples", str(SPATIAL_ITERATIONS * B)])
+        one = _job("import chip_smoke as c; c._spatial_full_job(%r)"
+                   % json.dumps([argv + ["--out_dir", os.path.join(tmp, "b1")], None, None]))
+        equality = []
+        for layout, out, procs in jobs:
+            fused_normalize_stack.launches = 0
+            single = train_adapt(_spatial_config(os.path.join(out, "one"), layout["hw"],
+                                                 layout["batch"]), device=DEVICE)
+            single_launches = fused_normalize_stack.launches
+            want = _state_tensors(single)
+            del single
+            ranks = [_finish(p, f"rank {r} of 1x{layout['space']}")
+                     for r, p in enumerate(procs)]
+            diffs = [_max_rel_diff(torch.load(os.path.join(out, f"state{r}.pt")), want)
+                     for r in range(layout["space"])]
+            row = {"layout": f"1x{layout['space']}", "hw": list(layout["hw"]),
+                   "batch": layout["batch"], "net": "drn_d_22", "input_ch": 6,
+                   "dtype": "float64", "backend": ranks[0]["backend"],
+                   "iterations": [r["iterations"] for r in ranks],
+                   "launches_per_rank": [r["launches"] for r in ranks],
+                   "single_process_launches": single_launches,
+                   "max_rel_diff_vs_one_process": diffs, "bound": SPATIAL_BOUND}
+            equality.append(row)
+            if max(diffs) > SPATIAL_BOUND:
+                failures.append(f"(a) {row['layout']}: {max(diffs)} > {SPATIAL_BOUND}")
+            if any(r["iterations"] != SPATIAL_ITERATIONS
+                   or r["launches"] != 2 * SPATIAL_ITERATIONS for r in ranks):
+                failures.append(f"(a) {row['layout']}: ranks {ranks}")
+        table = {"fit_640x480": _table_rows(fit, "spatial_memory_table --mode fit"),
+                 "spatial_2048x1024": _table_rows(spatial,
+                                                  "spatial_memory_table --mode spatial")}
+        one = _finish(one, "the full-width command in 1 process")
+        steps["a_c_and_one_process"] = time.perf_counter() - t_phase - steps["hha"]
+        if not any(r.get("fits") for r in table["fit_640x480"].values()) \
+                or len(table["spatial_2048x1024"]) != 3:
+            failures.append(f"(c): {table}")
+
+        # (b)'s two ranks alone on the card
+        torch.cuda.empty_cache()
+        port = _free_port()
+        two = [_job("import chip_smoke as c; c._spatial_full_job(%r)"
+                    % json.dumps([argv, r, port]), env={"MCSEG_DIST_BACKEND": "gloo"})
+               for r in range(2)]
+        two = [_finish(p, f"rank {r} of --spatial_devices 2 at full width")
+               for r, p in enumerate(two)]
+        steps["b_two_ranks"] = time.perf_counter() - t_phase - sum(steps.values())
+        losses = _logged(os.path.join(tmp, "b"), ("loss_source", "loss_b", "loss_dis"))
+    full = {"net": "drn_d_38", "input_ch": 6, "hw": [H, W], "batch": B, "dtype": "bfloat16",
+            "num_k": 4, "iterations": [r["iterations"] for r in two],
+            "launches_per_rank": [r["launches"] for r in two],
+            "peak_mem_gb_per_rank": [r["peak_mem_gb"] for r in two],
+            "one_process_peak_mem_gb": one["peak_mem_gb"],
+            "peak_ratio_per_rank": [r["peak_mem_gb"] / one["peak_mem_gb"] for r in two],
+            "ms_per_iteration_two_ranks_contending": [r["ms_per_iteration_all"] for r in two],
+            "losses_rank0_log": [{k: r[k] for k in ("loss_source", "loss_b", "loss_dis")}
+                                 for r in losses],
+            "unchanged": [r["unchanged"][:5] for r in two], "one_process": {
+                "iterations": one["iterations"], "launches": one["launches"]},
+            "note": "ms: host clock around each iteration ended by a synchronize; two ranks "
+                    "share one card and exchange every conv's halo over gloo through the "
+                    "host: contention, not a rate of the feature. The 1-process run (peak "
+                    "memory) runs beside (a) and (c), so its time is not reported"}
+    for r in two:
+        if r["iterations"] != SPATIAL_ITERATIONS or r["launches"] != 2 * SPATIAL_ITERATIONS:
+            failures.append(f"(b): {r['iterations']} iterations, {r['launches']} launches")
+        if r["unchanged"]:
+            failures.append(f"(b): training left tensors unchanged: {r['unchanged'][:5]}")
+    if len(losses) != SPATIAL_ITERATIONS:
+        failures.append(f"(b): {len(losses)} logged iterations")
+    report = {"hha_batch_invariance": hha, "equality": equality, "full_width": full,
+              "memory_table": table, "jax_package_tpu_v5e_table": JAX_V5E_TABLE,
+              "step_seconds": steps, "phase_seconds": time.perf_counter() - t_phase}
+    launches = (sum(sum(r["launches_per_rank"]) for r in equality)
+                + sum(full["launches_per_rank"]))
+    emit("spatial", card=smi_line, spatial_launches=launches, **report)
+    if failures:
+        raise AssertionError(f"phase spatial: {failures}")
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     try:
@@ -2650,6 +3051,7 @@ def main():
     deploy_launches = phase_deploy(smi_line)
     interop_launches = phase_interop(smi_line)
     parallel_launches = phase_parallel(smi_line, staged_ms)
+    spatial_launches = phase_spatial(smi_line)
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [{
         "name": "fused_normalize_stack", "route": "cuda", "source": KERNEL_SRC,
@@ -2662,7 +3064,8 @@ def main():
         "cli_launches": cli_launches,
         "family_launches": family_launches, "corpus_launches": corpus_launches,
         "deploy_launches": deploy_launches, "interop_launches": interop_launches,
-        "parallel_launches": parallel_launches, "train_case_ms": train_case["kernel_ms"],
+        "parallel_launches": parallel_launches, "spatial_launches": spatial_launches,
+        "train_case_ms": train_case["kernel_ms"],
         "train_case_share_of_bound": train_case["share_of_bound"],
         "c7_case_ms": c7_case["kernel_ms"], "c7_case_bound_ms": c7_case["bound_ms"],
         "c7_case_share_of_bound": c7_case["share_of_bound"]}]}), flush=True)

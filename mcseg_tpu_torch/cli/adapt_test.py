@@ -14,7 +14,7 @@ import dataclasses
 
 import torch
 
-from mcseg_tpu_torch.cli.argparse_compat import get_testing_parser, reject_unported
+from mcseg_tpu_torch.cli.argparse_compat import get_testing_parser
 from mcseg_tpu_torch.core.device import resolve_device
 from mcseg_tpu_torch.data.datasets import get_dataset
 from mcseg_tpu_torch.eval.tester import evaluate
@@ -27,7 +27,6 @@ def main(argv=None, average_classifiers=None, device="cuda"):
     and F2 unless --f1_only; source_test passes False, and --use_f2 opts
     back in."""
     args = get_testing_parser("adapt_test").parse_args(argv)
-    reject_unported(args)
     dev = resolve_device(device)
     if average_classifiers is None:
         average_classifiers = not args.f1_only

@@ -10,11 +10,13 @@ Every flag parses. ``--s2d`` only chooses how the JAX package lays out the
 same computation: the port keeps it in the config sidecar and does not act
 on it. ``--multihost`` / ``--coordinator`` / ``--num_processes`` /
 ``--process_id`` make a training command one rank of a data-parallel job
-(``parallel/multihost.py``), and ``--all_devices`` scores on every card of
-the process. A flag that changes what a run produces or where it runs, and
-that the port has not ported (``--spatial_devices``), raises
-``NotImplementedError`` from ``reject_unported`` when given a value other
-than its default.
+(``parallel/multihost.py``), ``--spatial_devices`` splits the rows of its
+activations over that many of the ranks (``parallel/spatial.py``), and
+``--all_devices`` scores on every card of the process. ``reject_unported``
+refuses, before anything runs, the layouts the port cannot run: FCN8s or
+PSPNet with ``--spatial_devices`` above 1 (``NotImplementedError``, naming
+the ROADMAP item that would port them) and a train height the row blocks
+do not divide at every trunk level (``ValueError``).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import Sequence
 
 from mcseg_tpu_torch.core.config import DataConfig, ExperimentConfig, ModelConfig, TrainConfig
 from mcseg_tpu_torch.data.labels import get_label_spec
+from mcseg_tpu_torch.parallel.spatial import check_spatial
 
 
 def _add_model_args(p: argparse.ArgumentParser) -> None:
@@ -66,8 +69,8 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
                    help="retain only the newest N epoch checkpoints "
                         "(0 = keep all; 'last' is never pruned)")
     p.add_argument("--spatial_devices", type=int, default=1,
-                   help="shard activation height over devices (not ported: "
-                        "a value above 1 raises)")
+                   help="split activation rows over this many ranks of the job "
+                        "(DRN trunks; must divide the ranks)")
     p.add_argument("--multihost", action="store_true",
                    help="one rank of a data-parallel job launched by torchrun "
                         "(env://), one process per card")
@@ -179,20 +182,14 @@ def get_testing_parser(name: str = "test") -> argparse.ArgumentParser:
     return p
 
 
-# flag -> (value that is accepted, the ROADMAP item that ports the flag)
-_UNPORTED = {
-    "spatial_devices": (1, "Queue 1 item 10 (spatial partitioning)"),
-}
-
-
 def reject_unported(args: argparse.Namespace) -> None:
-    """Raise ``NotImplementedError`` for an unported flag that was given a
-    value other than its default; flags a parser lacks are skipped."""
-    for name, (default, item) in _UNPORTED.items():
-        if hasattr(args, name) and getattr(args, name) != default:
-            raise NotImplementedError(
-                f"--{name} is not ported to mcseg_tpu_torch yet "
-                f"(ROADMAP.md {item}); drop the flag or use the JAX package")
+    """Refuse a ``--spatial_devices`` layout the port cannot run
+    (``parallel.spatial.check_spatial``: ``NotImplementedError`` for FCN8s
+    and PSPNet, ``ValueError`` for a train height the row blocks do not
+    divide); a parser without the flag passes."""
+    space = getattr(args, "spatial_devices", 1)
+    if space > 1:
+        check_spatial(args.net, fix_img_shape_args(args.train_img_shape)[1], space)
 
 
 def args_to_config(args: argparse.Namespace, adapt: bool) -> ExperimentConfig:

@@ -21,7 +21,9 @@ Submodules are named after the flax parameter tree (``conv0``, ``bn0``,
 by name (``utils/jax_weights.py``). Padding is symmetric
 ``dilation * (k // 2)``, BatchNorm eps 1e-5 and momentum 0.1 (torch terms),
 its running variance advanced as flax advances it (``BatchNorm2d``). NCHW
-in and out.
+in and out. Under spatial partitioning (``parallel/spatial.py``) every conv
+of a training-mode forward takes its rows' halo from the neighbouring row
+blocks instead of zero padding (``Conv2d``).
 """
 
 from __future__ import annotations
@@ -29,9 +31,11 @@ from __future__ import annotations
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from mcseg_tpu_torch.parallel.mesh import DataParallel
+from mcseg_tpu_torch.parallel.spatial import RowSplit, halo_rows
 from mcseg_tpu_torch.parallel.sync_bn import sync_batch_norm
 
 BN_EPS = 1e-5
@@ -39,11 +43,28 @@ BN_MOMENTUM = 0.1
 CHANNELS = (16, 32, 64, 128, 256, 512, 512, 512)  # levels 1-8
 
 
+class Conv2d(RowSplit, nn.Conv2d):
+    """``nn.Conv2d`` that, under a spatial layout in training
+    (``set_data_parallel`` with ``space`` > 1), pads its row block's height
+    with the ``padding`` rows above and below it from the neighbouring
+    blocks (``parallel.spatial.halo_rows``; zeros beyond the image) and its
+    width with zeros. A stride-2 conv needs an even start row, which
+    ``parallel.spatial.check_spatial`` guarantees."""
+
+    def forward(self, x):
+        dp = self.row_split()
+        if dp is None:
+            return super().forward(x)
+        ph, pw = self.padding
+        return F.conv2d(halo_rows(x, dp, ph, ph), self.weight, self.bias, self.stride,
+                        (0, pw), self.dilation, self.groups)
+
+
 def _conv(cin: int, cout: int, kernel: int, stride: int = 1,
-          dilation: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, kernel, stride=stride,
-                     padding=dilation * (kernel // 2), dilation=dilation,
-                     bias=False)
+          dilation: int = 1) -> Conv2d:
+    return Conv2d(cin, cout, kernel, stride=stride,
+                  padding=dilation * (kernel // 2), dilation=dilation,
+                  bias=False)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -83,10 +104,15 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 def set_data_parallel(module: nn.Module, dp: Optional[DataParallel]) -> None:
     """Set the data-parallel context of every ``BatchNorm2d`` of ``module``
-    (None: statistics of the local batch)."""
+    (None: statistics of the local batch), and its spatial layout on every
+    ``RowSplit`` module (the convs and the heads' upsample) when ``dp``
+    splits rows."""
+    spatial = dp if dp is not None and dp.space > 1 else None
     for m in module.modules():
         if isinstance(m, BatchNorm2d):
             m.data_parallel = dp
+        if isinstance(m, RowSplit):
+            m.spatial = spatial
 
 
 def _bn(c: int) -> BatchNorm2d:

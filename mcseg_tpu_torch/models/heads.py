@@ -1,7 +1,9 @@
 """Heads on the trunk's stride-8 features (NCHW): the pixel classifier F
 (1x1 score conv to n_class) and the multitask trainer's two auxiliary heads
 (1x1 conv to one channel: boundary logits, depth in metres), each followed
-by the same fixed bilinear 8x upsample."""
+by the same fixed bilinear 8x upsample. Under spatial partitioning in
+training the features and the output are row blocks
+(``ops.upsample.upsample_logits(dp=)``)."""
 
 from __future__ import annotations
 
@@ -9,11 +11,12 @@ import torch
 from torch import nn
 
 from mcseg_tpu_torch.ops.upsample import upsample_logits
+from mcseg_tpu_torch.parallel.spatial import RowSplit
 
 UP_FACTOR = 8  # the DRN trunk's output stride
 
 
-class PixelClassifier(nn.Module):
+class PixelClassifier(RowSplit, nn.Module):
     """Logits come back in at least float32 (bf16 compute is promoted for
     the softmax/argmax that follows; a float64 oracle stays float64)."""
 
@@ -23,11 +26,11 @@ class PixelClassifier(nn.Module):
         self.score = nn.Conv2d(in_ch, n_class, 1, bias=True)
 
     def forward(self, feat):
-        x = upsample_logits(self.score(feat), UP_FACTOR, self.upsample)
+        x = upsample_logits(self.score(feat), UP_FACTOR, self.upsample, self.row_split())
         return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
-class _OneChannelHead(nn.Module):
+class _OneChannelHead(RowSplit, nn.Module):
     """1x1 conv to one channel + 8x upsample, at least float32 out. The conv
     is named as in the flax tree ('boundary' or 'depth'), so the state dict
     maps to the JAX subtree 'B' or 'D' one to one."""
@@ -44,7 +47,7 @@ class _OneChannelHead(nn.Module):
         return getattr(self, self.CONV_NAME)
 
     def forward(self, feat):
-        x = upsample_logits(self.conv(feat), UP_FACTOR, self.upsample)
+        x = upsample_logits(self.conv(feat), UP_FACTOR, self.upsample, self.row_split())
         return x.to(torch.promote_types(x.dtype, torch.float32))
 
 

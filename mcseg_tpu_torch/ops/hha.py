@@ -12,6 +12,12 @@ The port of the JAX package's ``ops/hha.py``, batched: every plane is
      point in cm, angle(normal, gravity) in degrees + 38; clipped to
      [0, 255]. Missing depth is set to 1e3 for the geometry and its HHA
      pixels are zeroed.
+
+Each image's encoding is independent of the batch it comes in, bit for
+bit, on the card too: every step is elementwise, the floor is a min, and
+the Gram sums, which CUDA would split by the batch's size and round
+differently, are exact (``_image_sums``). A rank that encodes part of a
+batch gets what one process encoding the whole batch gets.
 """
 
 from __future__ import annotations
@@ -88,6 +94,32 @@ _ANNEAL = (np.linspace(45.0, 15.0, GRAVITY_ROUNDS).astype(np.float32)
 _THRESHOLDS = tuple((float(t), float(np.float32(math.pi / 2) - t)) for t in _ANNEAL)
 
 
+# fixed-point scale of the Gram sums: terms are products of unit normals
+# (|t| <= 1), so a term fits int32 and an image of up to 2^32 pixels sums
+# within int64
+_FIXED_POINT = 2.0 ** 30
+
+
+def _image_sums(mask: torch.Tensor, scaled: torch.Tensor) -> torch.Tensor:
+    """Per-image sums of ``mask`` [B,H,W] (0 or 1) times each of the planes
+    ``scaled`` [P,B,H,W] (values in [-1, 1] times 2^30), float32 [P,B]: each
+    term an int32 multiple of 2^-30 (exact for |t| >= 2^-7, truncated
+    below), summed in int64. Integer sums are exact in any order, so an
+    image's sum is the same bits whatever the batch (a float32 ``torch.sum``
+    on the card splits its work by the number of images and rounds
+    accordingly); the truncation of the terms is far below float32's own
+    rounding in the sum."""
+    fixed = (mask[None] * scaled).to(torch.int32)
+    return (fixed.sum(dim=(2, 3), dtype=torch.int64).to(torch.float64)
+            / _FIXED_POINT).to(torch.float32)
+
+
+def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Row-wise dot product of [B, 3] vectors, elementwise (no reduction
+    kernel whose split depends on B)."""
+    return a[:, 0] * b[:, 0] + a[:, 1] * b[:, 1] + a[:, 2] * b[:, 2]
+
+
 def estimate_gravity(normals: Planes, valid: torch.Tensor) -> torch.Tensor:
     """Per-image gravity direction [B, 3] (unit, roughly +Y).
 
@@ -100,11 +132,11 @@ def estimate_gravity(normals: Planes, valid: torch.Tensor) -> torch.Tensor:
     b = nx.shape[0]
     g = torch.tensor([0.0, 1.0, 0.0], device=nx.device).repeat(b, 1)
     w2 = valid.to(torch.float32) ** 2  # (w n)(w n)^T carries w^2
-    products = (nx * nx, nx * ny, nx * nz, ny * ny, ny * nz, nz * nz)
+    # the six products of n n^T in fixed point, for every round's sums
+    scaled = torch.stack((nx * nx, nx * ny, nx * nz, ny * ny, ny * nz, nz * nz)) * _FIXED_POINT
 
     def gram(mask):
-        m = mask * w2
-        xx, xy, xz, yy, yz, zz = (torch.sum(m * p, dim=(1, 2)) for p in products)
+        xx, xy, xz, yy, yz, zz = _image_sums(mask * w2, scaled)
         return torch.stack([torch.stack([xx, xy, xz], -1),
                             torch.stack([xy, yy, yz], -1),
                             torch.stack([xz, yz, zz], -1)], -2)
@@ -116,8 +148,8 @@ def estimate_gravity(normals: Planes, valid: torch.Tensor) -> torch.Tensor:
         m = gram((ang < thr).to(torch.float32)) - gram((ang > perp_thr).to(torch.float32))
         _, vecs = torch.linalg.eigh(m)  # ascending eigenvalues
         cand = vecs[:, :, -1]
-        cand = torch.where((cand * g).sum(-1, keepdim=True) < 0, -cand, cand)
-        g = cand / torch.linalg.norm(cand, dim=-1, keepdim=True).clamp_min(1e-8)
+        cand = torch.where(_dot3(cand, g)[:, None] < 0, -cand, cand)
+        g = cand / torch.sqrt(_dot3(cand, cand)).clamp_min(1e-8)[:, None]
     return g
 
 

@@ -7,11 +7,21 @@ every gradient over it. Here each process holds one card, its block of the
 global batch and a replica of the state, and the reductions are explicit:
 
   * ``DataParallel``: the process group, this rank, the world size and the
-    card. Every helper takes ``dp=None`` to mean a single process, and is
-    then the identity, so the default path is the plain one.
-  * ``local_batch_rows``: rank r holds the contiguous block r of a global
-    batch, as ``P('data')`` places rows; a batch the world size does not
-    divide is refused, as JAX's sharding refuses it.
+    card, and the extent ``space`` of spatial partitioning with its
+    sub-groups (``parallel/spatial.py``). Every helper takes ``dp=None`` to
+    mean a single process, and is then the identity, so the default path
+    is the plain one.
+  * ``local_batch_rows``: data block b holds the contiguous block b of a
+    global batch, as ``P('data')`` places rows; a batch the data blocks do
+    not divide is refused, as JAX's sharding refuses it.
+
+Two counts stay apart. The ranks lay out as JAX's ``Mesh((n/s, s),
+('data', 'space'))``: rank r holds data block r // s of the global batch
+and row block r % s of every activation. The *data blocks* (n/s) divide
+the batch: the input stream, the crop and flip draws and the batch checks
+count them (``data_blocks``, ``batch_rows``). The *ranks* (n) each hold a
+disjoint share of every activation: BatchNorm's element count, the losses'
+means and the gradient average count them (``world_size``, ``dp.world``).
   * ``all_sum`` / ``all_max``: reductions over the ranks that autograd
     differentiates. Each rank's loss is the global loss; the backward of a
     reduction sums the upstream gradients over the ranks (the semantics of
@@ -41,31 +51,64 @@ _BUCKET_BYTES = 32 * 2**20
 @dataclass(frozen=True)
 class DataParallel:
     """One process of a data-parallel job: ``rank`` of ``world`` on
-    ``device``, over ``group`` (None: the default process group)."""
+    ``device``, over ``group`` (None: the default process group). Under
+    spatial partitioning (``space`` > 1) the rank holds row block
+    ``space_rank`` of data block ``data_rank``; ``space_group`` joins the
+    ``space`` ranks of its data block (the halo exchanges), ``data_group``
+    the ranks that hold its row block of every data block."""
 
     rank: int
     world: int
     device: torch.device
     group: Optional[object] = None
+    space: int = 1
+    space_group: Optional[object] = None
+    data_group: Optional[object] = None
+
+    @property
+    def data_blocks(self) -> int:
+        return self.world // self.space
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.space
+
+    @property
+    def space_rank(self) -> int:
+        return self.rank % self.space
 
 
-def local_batch_rows(world: int, rank: int, global_batch: int) -> np.ndarray:
-    """Rows of a [global_batch, ...] batch that ``rank`` holds: the
-    contiguous block ``rank`` of ``world`` equal blocks, int64."""
-    if global_batch % world:
-        raise ValueError(f"batch {global_batch} is not divisible by the {world} ranks "
+def local_batch_rows(blocks: int, block: int, global_batch: int,
+                     what: str = "ranks") -> np.ndarray:
+    """Rows of a [global_batch, ...] batch that data block ``block`` holds:
+    the contiguous block ``block`` of ``blocks`` equal blocks, int64
+    (``what`` the blocks are, for the refusal of a batch they do not
+    divide)."""
+    if global_batch % blocks:
+        raise ValueError(f"batch {global_batch} is not divisible by the {blocks} {what} "
                          "of the data-parallel group")
-    per = global_batch // world
-    return np.arange(rank * per, (rank + 1) * per, dtype=np.int64)
+    per = global_batch // blocks
+    return np.arange(block * per, (block + 1) * per, dtype=np.int64)
 
 
 def batch_rows(dp: Optional[DataParallel], global_batch: int) -> Optional[np.ndarray]:
-    """``local_batch_rows`` of this rank, or None (every row) without a group."""
-    return None if dp is None else local_batch_rows(dp.world, dp.rank, global_batch)
+    """``local_batch_rows`` of this rank's data block, or None (every row)
+    without a group."""
+    if dp is None:
+        return None
+    return local_batch_rows(dp.data_blocks, dp.data_rank, global_batch,
+                            "data blocks" if dp.space > 1 else "ranks")
 
 
 def world_size(dp: Optional[DataParallel]) -> int:
+    """The ranks holding disjoint shares of every activation (1 without a
+    group)."""
     return 1 if dp is None else dp.world
+
+
+def data_blocks(dp: Optional[DataParallel]) -> int:
+    """The data blocks the global batch splits into (1 without a group)."""
+    return 1 if dp is None else dp.data_blocks
 
 
 def _all_reduce(x: torch.Tensor, dp: DataParallel, op=dist.ReduceOp.SUM) -> torch.Tensor:

@@ -14,9 +14,13 @@ the CPU (the tests run n ranks against 1 there). Launch with torchrun,
     python -m mcseg_tpu_torch.cli.adapt_train ... --coordinator host0:9988 \\
         --num_processes 8 --process_id $RANK
 
-A command with neither flag runs in one process on one card, and nothing
-here runs. Only rank 0 writes checkpoints, logs and tables (``is_primary``);
-``sync`` is the barrier after the final checkpoint.
+(one command per process; ranks that share a card, which NCCL refuses,
+run over gloo with ``MCSEG_DIST_BACKEND=gloo`` in their environment). A
+command with neither flag runs in one process on one card, and nothing
+here runs. ``--spatial_devices s`` lays the ranks out as (n/s data blocks)
+x (s row blocks) (``parallel/spatial.py``). Only rank 0 writes
+checkpoints, logs and tables (``is_primary``); ``sync`` is the barrier
+after the final checkpoint.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch.distributed as dist
 
 from mcseg_tpu_torch.core.device import resolve_device
 from mcseg_tpu_torch.parallel.mesh import DataParallel
+from mcseg_tpu_torch.parallel.spatial import check_ranks, spatial_layout
 
 
 def _card(device: torch.device, rank: int) -> torch.device:
@@ -44,14 +49,17 @@ def _card(device: torch.device, rank: int) -> torch.device:
 
 def initialize(coordinator: Optional[str] = None, num_processes: Optional[int] = None,
                process_id: Optional[int] = None, device="cuda",
-               backend: Optional[str] = None) -> DataParallel:
+               backend: Optional[str] = None, spatial: int = 1) -> DataParallel:
     """Join this process to the job and return its context. ``coordinator``
     ``host:port`` with ``num_processes`` and ``process_id``, or, with all
     three None, torchrun's ``env://`` variables. The backend is NCCL on a
     CUDA device and gloo on the CPU unless ``backend`` names one (gloo also
     carries CUDA tensors, for ranks that share one card). One warm-up
     all-reduce on the device builds the communicator before the first step.
-    Every failure raises; nothing falls back to a single process."""
+    ``spatial`` > 1 lays the ranks out in row blocks of that many
+    (``parallel.spatial.spatial_layout``); a count that does not divide the
+    ranks raises before the group is joined. Every failure raises; nothing
+    falls back to a single process."""
     dev = resolve_device(device)
     if dist.is_initialized():
         raise RuntimeError("a torch.distributed process group is already initialized")
@@ -63,6 +71,8 @@ def initialize(coordinator: Optional[str] = None, num_processes: Optional[int] =
         if num_processes is not None or process_id is not None:
             raise ValueError("--num_processes and --process_id need --coordinator")
         init_method, world, rank = "env://", None, None
+    if world is not None or "WORLD_SIZE" in os.environ:
+        check_ranks(spatial, world if world is not None else int(os.environ["WORLD_SIZE"]))
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     if dev.type == "cuda":
         dev = _card(dev, process_id if process_id is not None
@@ -72,11 +82,15 @@ def initialize(coordinator: Optional[str] = None, num_processes: Optional[int] =
     dist.init_process_group(backend, init_method=init_method, world_size=world or -1,
                             rank=rank if rank is not None else -1, **kw)
     dp = DataParallel(rank=dist.get_rank(), world=dist.get_world_size(), device=dev)
-    warm = torch.ones(1, device=dev)
-    dist.all_reduce(warm)
-    if int(warm.item()) != dp.world:
-        raise RuntimeError(f"warm-up all-reduce gave {warm.item()}, not {dp.world}")
-    return dp
+    try:
+        warm = torch.ones(1, device=dev)
+        dist.all_reduce(warm)
+        if int(warm.item()) != dp.world:
+            raise RuntimeError(f"warm-up all-reduce gave {warm.item()}, not {dp.world}")
+        return spatial_layout(dp, spatial)
+    except BaseException:
+        shutdown()
+        raise
 
 
 def shutdown() -> None:
@@ -90,14 +104,19 @@ def maybe_initialize_from_args(args, device="cuda") -> Iterator[Optional[DataPar
     """The entry points' hook: with ``--multihost`` or ``--coordinator``,
     join the job for the duration of the block and yield its context;
     without them yield None and do nothing (``--num_processes`` or
-    ``--process_id`` alone raise: they ask for a job that nothing joins)."""
+    ``--process_id`` alone raise: they ask for a job that nothing joins, and
+    so does ``--spatial_devices`` above 1: one process has no rows to
+    split). ``--spatial_devices`` lays out the job's ranks."""
     if not (getattr(args, "multihost", False) or getattr(args, "coordinator", None)):
         if getattr(args, "num_processes", None) is not None \
                 or getattr(args, "process_id", None) is not None:
             raise ValueError("--num_processes and --process_id need --coordinator")
+        check_ranks(getattr(args, "spatial_devices", 1), 1)
         yield None
         return
-    dp = initialize(args.coordinator, args.num_processes, args.process_id, device)
+    dp = initialize(args.coordinator, args.num_processes, args.process_id, device,
+                    backend=os.environ.get("MCSEG_DIST_BACKEND") or None,
+                    spatial=getattr(args, "spatial_devices", 1))
     try:
         yield dp
     finally:

@@ -20,6 +20,13 @@ BatchNorm statistics and gradients over the group, so the run is the
 single-process run of the global batch. Every rank starts from rank 0's
 state, and only rank 0 writes the run directory (logs, ``ep<N>``, pruning,
 ``last``), followed by a barrier.
+
+Spatial partitioning (``dp.space`` > 1, JAX's ``_spatial``): the rows of
+the global batch go to data blocks, and every rank of a block receives,
+draws for and preprocesses the block's whole images (HHA's gravity is a
+per-image estimate), then keeps its row block of each preprocessed input
+(``parallel.spatial.shard_rows``) for the step, whose convs, upsamples,
+BatchNorm and losses then work on row blocks.
 """
 
 from __future__ import annotations
@@ -42,8 +49,10 @@ from mcseg_tpu_torch.data.pipeline import batch_iterator, device_prefetch
 from mcseg_tpu_torch.models.factory import get_aux_heads
 from mcseg_tpu_torch.ops.preprocess import (
     draw_augment, make_train_preprocess, pre_crop_canvas)
-from mcseg_tpu_torch.parallel.mesh import DataParallel, batch_rows, world_size
+from mcseg_tpu_torch.losses.seg import boundary_targets_from_labels
+from mcseg_tpu_torch.parallel.mesh import DataParallel, batch_rows, data_blocks
 from mcseg_tpu_torch.parallel.multihost import sync
+from mcseg_tpu_torch.parallel.spatial import check_spatial, shard_rows
 from mcseg_tpu_torch.train.mcd import make_mcd_step
 from mcseg_tpu_torch.train.multitask import (
     aux_head_keys, make_multitask_mcd_step, make_multitask_source_step)
@@ -77,10 +86,10 @@ def _img_dtype(dtype: torch.dtype) -> torch.dtype:
 def _draws(gen: torch.Generator, b: int, pre, target, cfg: ExperimentConfig,
            dp: Optional[DataParallel]):
     """The crop and flip draws of this rank's ``b`` rows: those of the
-    global batch of ``b * world`` rows, drawn whole on every rank, then
-    cut to the rank's rows."""
-    draws = draw_augment(gen, b * world_size(dp), pre, target, cfg.data)
-    rows = batch_rows(dp, b * world_size(dp))
+    global batch of ``b * data blocks`` rows, drawn whole on every rank,
+    then cut to the rows of the rank's data block."""
+    draws = draw_augment(gen, b * data_blocks(dp), pre, target, cfg.data)
+    rows = batch_rows(dp, b * data_blocks(dp))
     if rows is None:
         return draws
     return tuple(t[int(rows[0]):int(rows[-1]) + 1] for t in draws)
@@ -93,8 +102,9 @@ def make_adapt_iteration(cfg: ExperimentConfig, dp: Optional[DataParallel] = Non
     train preprocess of both (two launches of the normalize kernel), then
     the MCD step. The target batch's labels are not read. ``mark`` is
     passed to the step, and also called with 'preprocess' after both
-    preprocesses. Under ``dp`` the batches are this rank's rows of the
-    global batch."""
+    preprocesses. Under ``dp`` the batches are the rows of this rank's data
+    block of the global batch, and under spatial partitioning the step gets
+    the rank's row block of each preprocessed input."""
     dtype = compute_dtype(cfg.model.dtype)
     pp = make_train_preprocess(cfg.data, _img_dtype(dtype))
     step = make_mcd_step(cfg.train, cfg.model.uses_one_classifier, dtype, dp)
@@ -107,6 +117,7 @@ def make_adapt_iteration(cfg: ExperimentConfig, dp: Optional[DataParallel] = Non
         xs, ys = pp(src, *_draws(gen, b, pre, target, cfg, dp))
         xt, _ = pp({k: v for k, v in tgt.items() if k != "label"},
                    *_draws(gen, b, pre, target, cfg, dp))
+        xs, ys, xt = shard_rows(dp, xs, ys, xt)
         if mark:
             mark("preprocess")
         return step(state, as_input(xs), ys, as_input(xt), mark)
@@ -128,10 +139,22 @@ def make_source_iteration(cfg: ExperimentConfig, dp: Optional[DataParallel] = No
 
     def iterate(state: MCDTrainState, src):
         gen = augment_generator(cfg.train.seed, state.step)
-        x, y = pp(src, *_draws(gen, src["image"].shape[0], pre, target, cfg, dp))
+        x, y = shard_rows(dp, *pp(src, *_draws(gen, src["image"].shape[0], pre, target,
+                                                  cfg, dp)))
         return step(state, as_input(x), y)
 
     return iterate
+
+
+def _row_split_boundary(dp: Optional[DataParallel], labels: torch.Tensor,
+                        boundary_weight: float):
+    """Under spatial partitioning with a boundary head, this rank's row
+    block of the boundary targets and their valid mask, derived from the
+    whole labels (a pixel's target reads the rows beside it); else None, and
+    the step derives them from its labels."""
+    if dp is None or dp.space == 1 or boundary_weight <= 0:
+        return None
+    return shard_rows(dp, *boundary_targets_from_labels(labels))
 
 
 def make_multitask_iteration(cfg: ExperimentConfig, depth_weight: float = 0.5,
@@ -155,9 +178,11 @@ def make_multitask_iteration(cfg: ExperimentConfig, depth_weight: float = 0.5,
         xs, ys, ds = pp_src(src, *_draws(gen, b, pre, target, cfg, dp))
         xt, _ = pp_tgt({k: v for k, v in tgt.items() if k != "label"},
                        *_draws(gen, b, pre, target, cfg, dp))
+        bnd = _row_split_boundary(dp, ys, boundary_weight)
+        xs, ys, ds, xt = shard_rows(dp, xs, ys, ds, xt)
         if mark:
             mark("preprocess")
-        return step(state, as_input(xs), ys, ds, as_input(xt), mark)
+        return step(state, as_input(xs), ys, ds, as_input(xt), mark, boundary=bnd)
 
     return iterate
 
@@ -178,7 +203,9 @@ def make_multitask_source_iteration(cfg: ExperimentConfig, depth_weight: float =
     def iterate(state: MCDTrainState, src):
         gen = augment_generator(cfg.train.seed, state.step)
         x, y, d = pp(src, *_draws(gen, src["image"].shape[0], pre, target, cfg, dp))
-        return step(state, as_input(x), y, d)
+        bnd = _row_split_boundary(dp, y, boundary_weight)
+        x, y, d = shard_rows(dp, x, y, d)
+        return step(state, as_input(x), y, d, boundary=bnd)
 
     return iterate
 
@@ -344,8 +371,10 @@ def _train_loop(cfg: ExperimentConfig, dataset, iterate: Callable,
     item of the input stream of ``dataset`` on ``dev`` (a pair of batches
     for a ZipDataset); the state carries the auxiliary heads
     ``aux_heads``. Under ``dp`` the state starts as rank 0's, the stream
-    holds this rank's rows, and only rank 0 writes."""
-    batch_rows(dp, cfg.data.batch_size)  # refuses a batch the ranks do not divide
+    holds the rows of this rank's data block, and only rank 0 writes. A
+    spatial layout the port cannot run raises before any state is built."""
+    batch_rows(dp, cfg.data.batch_size)  # refuses a batch the data blocks do not divide
+    check_spatial(cfg.model.net, cfg.data.train_img_shape[1], dp.space if dp else 1)
     state = _init_or_resume(cfg, dev, aux_heads)
     state.broadcast_from_primary(dp)
     state.set_data_parallel(dp)

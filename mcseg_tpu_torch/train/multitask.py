@@ -45,9 +45,11 @@ def aux_head_keys(boundary_weight: float) -> Tuple[str, ...]:
 
 def _source_losses(state: MCDTrainState, x, y, depth, depth_weight: float,
                    boundary_weight: float, dtype: torch.dtype,
-                   dp: Optional[DataParallel] = None):
+                   dp: Optional[DataParallel] = None, boundary=None):
     """(total, seg, depth, boundary or None) of one source batch, G and
-    every head applied once in train mode."""
+    every head applied once in train mode. ``boundary``: the (targets,
+    valid) of the boundary loss when the caller derived them (from whole
+    labels, under spatial partitioning); else they come from ``y``."""
     with compute_context(dtype, x.device):
         feat = state.g(x)
         o1, o2 = state.f1(feat), state.f2(feat)
@@ -58,7 +60,8 @@ def _source_losses(state: MCDTrainState, x, y, depth, depth_weight: float,
     aux = depth_weight * dep
     bnd = None
     if b_logits is not None:
-        bnd = balanced_bce_2d(b_logits, *boundary_targets_from_labels(y), dp=dp)
+        targets = boundary if boundary is not None else boundary_targets_from_labels(y)
+        bnd = balanced_bce_2d(b_logits, *targets, dp=dp)
         aux = aux + boundary_weight * bnd
     return seg + aux, seg, dep, bnd
 
@@ -77,21 +80,23 @@ def make_multitask_source_step(cfg: TrainConfig, depth_weight: float = 0.5,
                                boundary_weight: float = 0.0,
                                dtype: torch.dtype = torch.float32,
                                dp: Optional[DataParallel] = None) -> Callable:
-    """``step(state, x, y, depth) -> metrics``: ``x`` the preprocessed
-    input NCHW, ``y`` the labels [B,H,W], ``depth`` metres [B,H,W] (pixels
-    not finite or <= 0 unsupervised). Updates ``state`` in place; metrics
-    ``loss``, ``loss_seg``, ``loss_depth``, ``lr`` and ``loss_boundary``
-    when the state has a boundary head (losses detached on the device).
-    ``dp``: the data-parallel context, as in ``train.mcd.make_mcd_step``."""
+    """``step(state, x, y, depth, boundary=None) -> metrics``: ``x`` the
+    preprocessed input NCHW, ``y`` the labels [B,H,W], ``depth`` metres
+    [B,H,W] (pixels not finite or <= 0 unsupervised), ``boundary`` the
+    boundary head's (targets, valid) when derived by the caller. Updates
+    ``state`` in place; metrics ``loss``, ``loss_seg``, ``loss_depth``,
+    ``lr`` and ``loss_boundary`` when the state has a boundary head (losses
+    detached on the device). ``dp``: the data-parallel context, as in
+    ``train.mcd.make_mcd_step``."""
     lr_fn = make_lr_schedule(cfg.lr_schedule, cfg.lr, cfg.max_steps, cfg.lr_power)
 
-    def step(state: MCDTrainState, x, y, depth) -> Dict[str, object]:
+    def step(state: MCDTrainState, x, y, depth, boundary=None) -> Dict[str, object]:
         lr = lr_fn(state.step)
         set_lr(state.opt_g, lr)
         set_lr(state.opt_f, lr)
         state.reseed_masks()
         loss, seg, dep, bnd = _source_losses(state, x, y, depth, depth_weight,
-                                             boundary_weight, dtype, dp)
+                                             boundary_weight, dtype, dp, boundary)
         _update_all(state, loss, dp)
         state.step += 1
         metrics = {"loss": loss.detach(), "loss_seg": seg.detach(),
@@ -112,19 +117,21 @@ def make_multitask_mcd_step(cfg: TrainConfig, depth_weight: float = 0.5,
     in metres [B,H,W]). Metrics ``loss_source`` (the whole step-A loss),
     ``loss_seg``, ``loss_depth``, ``loss_b``, ``loss_dis``, ``lr`` and
     ``loss_boundary`` when the state has a boundary head. ``mark(name)``,
-    when given, is called after each sub-step ('A', 'B', 'C'). ``dp``: the
-    data-parallel context."""
+    when given, is called after each sub-step ('A', 'B', 'C'); ``boundary``
+    as in ``make_multitask_source_step``. ``dp``: the data-parallel
+    context."""
     disc = get_prob_distance_criterion(cfg.d_loss, dp)
     lr_fn = make_lr_schedule(cfg.lr_schedule, cfg.lr, cfg.max_steps, cfg.lr_power)
 
     def step(state: MCDTrainState, xs, ys, ds, xt,
-             mark: Optional[Callable[[str], None]] = None) -> Dict[str, object]:
+             mark: Optional[Callable[[str], None]] = None,
+             boundary=None) -> Dict[str, object]:
         lr = lr_fn(state.step)
         set_lr(state.opt_g, lr)
         set_lr(state.opt_f, lr)
         state.reseed_masks()
         loss_a, seg, dep, bnd = _source_losses(state, xs, ys, ds, depth_weight,
-                                               boundary_weight, dtype, dp)
+                                               boundary_weight, dtype, dp, boundary)
         _update_all(state, loss_a, dp)
         if mark:
             mark("A")

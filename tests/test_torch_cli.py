@@ -3,9 +3,9 @@ JAX package's, and end to end on the CPU.
 
 Parsing: the same reference command line gives the same ExperimentConfig
 dict in both packages, the testing parser the same namespace, and a bad
-choice is refused by both. A flag that changes what a run produces and
-that the port has not ported (``--spatial_devices``) raises
-``NotImplementedError``; the parallelism flags run a gloo group of one. ``--resume`` checks
+choice is refused by both. A layout the port has not ported
+(``--spatial_devices`` with PSPNet) raises ``NotImplementedError``; the
+parallelism flags run a gloo group of one. ``--resume`` checks
 the checkpoint's structure first, with JAX's message.
 
 End to end: drn_d_14, 40 classes, float32, batch 2 of ``synthetic`` ->
@@ -91,11 +91,12 @@ def test_testing_parser_and_bad_choices_match_jax():
 
 
 @pytest.mark.parametrize("main,argv", [
-    (source_train.main, "synthetic --spatial_devices 2"),
+    (source_train.main, "synthetic --net psp --spatial_devices 2"),
 ], ids=lambda v: v.split()[-1] if isinstance(v, str) else None)
 def test_unported_output_flags_raise(main, argv, tmp_path):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item 10 "
-                                                  r"\(spatial partitioning\)"):
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP\.md Queue 1 item 13 \(spatial partitioning of FCN8s "
+                             r"and PSPNet\)"):
         main(argv.split() + ["--out_dir", str(tmp_path / "run")], device="cpu")
     assert not os.path.exists(tmp_path / "run")  # refused before anything was written
 

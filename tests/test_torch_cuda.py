@@ -320,3 +320,73 @@ def test_batch_norm_under_a_one_rank_group_is_plain_batch_norm(one_rank_group):
     for name in ("running_mean", "running_var", "num_batches_tracked"):
         torch.testing.assert_close(getattr(synced, name), getattr(plain, name),
                                    rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(48, 64), (480, 640)])
+def test_hha_of_an_image_is_bit_equal_at_batch_1_4_and_8(cuda_device, hw):
+    """One image's HHA does not depend on the batch it is encoded in (ranks
+    that encode part of a batch get what one process gets)."""
+    from mcseg_tpu_torch.core.config import DataConfig
+    from mcseg_tpu_torch.data.datasets import get_dataset, stack_samples
+    from mcseg_tpu_torch.ops.hha import depth_to_hha_batch
+
+    h, w = hw
+    cfg = DataConfig(train_img_shape=(w, h), test_img_shape=(w, h))
+    depth = torch.as_tensor(stack_samples(get_dataset("synthetic_shifted", cfg, "train"),
+                                          range(8))["depth"]).to(cuda_device)
+    depth[0, :3, :5] = 0.0  # missing pixels
+    full = depth_to_hha_batch(depth)
+    assert torch.equal(depth_to_hha_batch(depth[:4]), full[:4])
+    assert torch.equal(depth_to_hha_batch(depth[4:]), full[4:])
+    for i in range(8):
+        assert torch.equal(depth_to_hha_batch(depth[i:i + 1])[0], full[i]), i
+
+
+@pytest.mark.cuda
+def test_halo_exchange_over_gloo_on_the_card_equals_the_unsplit_ops(cuda_device):
+    """2 gloo ranks sharing the card (NCCL refuses two ranks on one device),
+    one row block each, float64: the halo conv (the 7x7 stem, a stride-2
+    3x3 and dilation 4's halo of a whole block) and the 8x upsample in both
+    modes against the unsplit ops on the card, forward and backward, within
+    1e-12."""
+    import torch.nn.functional as F
+
+    from _torch_parallel_worker import spawn
+    from mcseg_tpu_torch.ops.upsample import upsample_logits
+
+    rng = np.random.RandomState(0)
+    cases = [(7, 1, 1), (3, 2, 1), (3, 1, 4)]
+    convs = [(rng.randn(2, 3, 8, 5), rng.randn(2, 4, 8 // s, -(-5 // s)),
+              rng.randn(4, 3, k, k), s, d) for k, s, d in cases]
+    up = (rng.randn(2, 3, 2, 5), rng.randn(2, 3, 16, 40), 8)
+    ranks = spawn([("halo", dict(space=2, convs=convs, upsample=up))], world=2,
+                  device="cuda:0")
+
+    def unsplit(fn, x, probe, w=None):
+        x = torch.from_numpy(x).to(cuda_device).requires_grad_(True)
+        w = None if w is None else torch.from_numpy(w).to(cuda_device).requires_grad_(True)
+        y = fn(x, w)
+        (y * torch.from_numpy(probe).to(cuda_device)).sum().backward()
+        return y.detach().cpu(), x.grad.cpu(), None if w is None else w.grad.cpu()
+
+    def close(got, want):
+        assert float((got - want).abs().max() / want.abs().max()) <= 1e-12
+
+    def rows(t, r):
+        n = t.shape[2] // 2
+        return t[:, :, r * n:(r + 1) * n]
+
+    for i, (x, probe, w, s, d) in enumerate(convs):
+        y, dx, dw = unsplit(lambda t, wt: F.conv2d(t, wt, stride=s, padding=d * (w.shape[-1] // 2),
+                                                   dilation=d), x, probe, w)
+        got = [r[0]["convs"][i] for r in ranks]
+        for r, g in enumerate(got):
+            close(g["y"], rows(y, r))
+            close(g["dx"], rows(dx, r))
+        close(sum(g["grads"]["weight"] for g in got), dw)
+    for mode in ("convt", "resize"):
+        y, dx, _ = unsplit(lambda t, _: upsample_logits(t, 8, mode), up[0], up[1])
+        for r, res in enumerate(ranks):
+            close(res[0]["upsample"][mode]["y"], rows(y, r))
+            close(res[0]["upsample"][mode]["dx"], rows(dx, r))

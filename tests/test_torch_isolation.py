@@ -5,7 +5,8 @@ only on their fallback route), builds nothing (registering the normalize
 kernel's custom op included), joins no process group (``parallel/``), and
 its entry points (serving and its export,
 evaluation, the three trainers, the five commands, the serving bench, the
-reference import, ``evaluate_preds`` and ``parity_eval``) refuse to run on
+reference import, ``evaluate_preds``, ``parity_eval`` and the spatial
+memory table) refuse to run on
 a CUDA device that is not there (no silent CPU fallback).
 
 Runs in a fresh interpreter, since this test process has JAX loaded."""
@@ -44,7 +45,8 @@ assert {"mcseg_tpu_torch._scripts", "mcseg_tpu_torch.cli.adapt_train",
         "mcseg_tpu_torch.cli.evaluate_preds", "mcseg_tpu_torch.tools.make_result_sheet",
         "mcseg_tpu_torch.tools.summarize_run", "mcseg_tpu_torch.tools.parity_eval",
         "mcseg_tpu_torch.parallel.mesh", "mcseg_tpu_torch.parallel.multihost",
-        "mcseg_tpu_torch.parallel.sync_bn"} <= set(mods), mods
+        "mcseg_tpu_torch.parallel.sync_bn", "mcseg_tpu_torch.parallel.spatial",
+        "mcseg_tpu_torch.tools.spatial_memory_table"} <= set(mods), mods
 import torch.distributed as dist
 assert not dist.is_available() or not dist.is_initialized()  # no process group at import
 from mcseg_tpu_torch.utils import cuda_build
@@ -53,7 +55,7 @@ assert hasattr(torch.ops.mcseg, "normalize_stack")
 
 from mcseg_tpu_torch.core.config import DataConfig, ExperimentConfig, ModelConfig
 from mcseg_tpu_torch.eval.serving import export_serving, make_serve_fn
-from mcseg_tpu_torch.tools import bench_serving, parity_eval
+from mcseg_tpu_torch.tools import bench_serving, parity_eval, spatial_memory_table
 from mcseg_tpu_torch.eval.tester import evaluate
 from mcseg_tpu_torch.models.factory import init_models
 from mcseg_tpu_torch.cli import (adapt_test, adapt_train, evaluate_preds, import_torch,
@@ -85,6 +87,7 @@ if not torch.cuda.is_available():
                  lambda: source_test.main(["/nonexistent/never_read"]),
                  lambda: export_serving(cfg, params, "/nonexistent/never_written"),
                  lambda: bench_serving.main(["--net", "drn_d_14"]),
+                 lambda: spatial_memory_table.main(["--mode", "fit"]),
                  lambda: import_torch.main(["/nonexistent/never_read", "/nonexistent/never"]),
                  lambda: evaluate_preds.main(["/nonexistent/preds", "/nonexistent/gt"]),
                  lambda: parity_eval.main(["/nonexistent/never_read", "--dataset", "nyu",

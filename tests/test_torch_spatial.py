@@ -1,0 +1,182 @@
+"""Spatial partitioning's building blocks (``mcseg_tpu_torch/parallel/spatial.py``)
+over 4 gloo CPU ranks in one row-block layout (1 data block x 4 row blocks),
+spawned once for the module, against the unsplit ops; and the layouts the
+port refuses.
+
+Float64. DRN's conv cases (k, stride, dilation): the 7x7 stem, 3x3 at
+dilation 1, 2 and 4, the stride-2 3x3 and the 1x1 projections, on a map of
+8 rows (2 per rank), so the 7x7's halo of 3 rows and dilation 4's of 4 span
+more than one neighbouring block. The 8x upsample in both modes on a map of
+4 rows (one per rank). Bound: each rank's output rows and input gradient,
+and the sum of the ranks' weight gradients, within 1e-12 of the unsplit
+op's (relative to each tensor's largest magnitude).
+"""
+
+import argparse
+import os
+import types
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from _torch_parallel_worker import Ranks
+from mcseg_tpu_torch.cli import adapt_train, argparse_compat, multitask_train, source_train
+from mcseg_tpu_torch.losses.seg import boundary_targets_from_labels
+from mcseg_tpu_torch.ops.upsample import upsample_logits
+from mcseg_tpu_torch.parallel import multihost
+from mcseg_tpu_torch.parallel.mesh import DataParallel, batch_rows, data_blocks, world_size
+from mcseg_tpu_torch.parallel.spatial import (
+    _halo_index, across_data, check_spatial, shard_rows)
+from mcseg_tpu_torch.train import loops
+
+SPACE = 4
+REL = 1e-12
+CONV_CASES = [(7, 1, 1), (3, 1, 1), (3, 2, 1), (3, 1, 2), (3, 1, 4), (1, 2, 1), (1, 1, 1)]
+B, C, H, W = 2, 3, 8, 5
+UP_H, FACTOR = 4, 8
+
+
+def _close(got, want, what):
+    err = float((got - want).abs().max() / max(float(want.abs().max()), 1e-300))
+    assert err <= REL, f"{what}: relative error {err:.3g}"
+
+
+@pytest.fixture(scope="module")
+def cases():
+    rng = np.random.RandomState(0)
+    convs = []
+    for k, stride, dilation in CONV_CASES:
+        x = rng.randn(B, C, H, W)
+        w = rng.randn(4, C, k, k)
+        probe = rng.randn(B, 4, H // stride, -(-W // stride))
+        convs.append((x, probe, w, stride, dilation))
+    up_x = rng.randn(B, C, UP_H, W)
+    up_probe = rng.randn(B, C, UP_H * FACTOR, W * FACTOR)
+    ranks = Ranks([("halo", dict(space=SPACE, convs=convs,
+                                 upsample=(up_x, up_probe, FACTOR)))], world=SPACE)
+    return {"convs": convs, "upsample": (up_x, up_probe), "ranks": ranks.results()}
+
+
+def _unsplit(fn, x, probe, weight=None):
+    x = torch.from_numpy(x).requires_grad_(True)
+    w = None if weight is None else torch.from_numpy(weight).requires_grad_(True)
+    y = fn(x, w)
+    (y * torch.from_numpy(probe)).sum().backward()
+    return y.detach(), x.grad, None if w is None else w.grad
+
+
+def _rows(t, rank, dim=2):
+    n = t.shape[dim] // SPACE
+    return t.narrow(dim, rank * n, n)
+
+
+@pytest.mark.parametrize("case", range(len(CONV_CASES)),
+                         ids=[f"k{k}s{s}d{d}" for k, s, d in CONV_CASES])
+def test_halo_conv_equals_the_unsplit_conv(cases, case):
+    x, probe, w, stride, dilation = cases["convs"][case]
+    pad = dilation * (w.shape[-1] // 2)
+    y, dx, dw = _unsplit(lambda t, wt: F.conv2d(t, wt, stride=stride, padding=pad,
+                                                dilation=dilation), x, probe, w)
+    got = [r[0]["convs"][case] for r in cases["ranks"]]
+    for rank, g in enumerate(got):
+        _close(g["y"], _rows(y, rank), f"rank {rank} output")
+        _close(g["dx"], _rows(dx, rank), f"rank {rank} input gradient")
+    _close(sum(g["grads"]["weight"] for g in got), dw, "weight gradient")
+
+
+@pytest.mark.parametrize("mode", ["convt", "resize"])
+def test_row_split_upsample_equals_the_unsplit_upsample(cases, mode):
+    x, probe = cases["upsample"]
+    y, dx, _ = _unsplit(lambda t, _: upsample_logits(t, FACTOR, mode), x, probe)
+    for rank, r in enumerate(cases["ranks"]):
+        g = r[0]["upsample"][mode]
+        assert g["y"].shape == (B, C, UP_H * FACTOR // SPACE, W * FACTOR)
+        _close(g["y"], _rows(y, rank), f"rank {rank} {mode} output")
+        _close(g["dx"], _rows(dx, rank), f"rank {rank} {mode} input gradient")
+
+
+def test_the_layout_keeps_two_counts_apart():
+    dps = [DataParallel(rank=r, world=8, device=torch.device("cpu"), space=4)
+           for r in range(8)]
+    assert [(d.data_rank, d.space_rank) for d in dps[3:6]] == [(0, 3), (1, 0), (1, 1)]
+    assert data_blocks(dps[0]) == 2 and world_size(dps[0]) == 8
+    # the ranks of a data block hold the same images; the blocks split the batch
+    assert [list(batch_rows(d, 4)) for d in dps[2:6]] == [[0, 1], [0, 1], [2, 3], [2, 3]]
+    with pytest.raises(ValueError, match="data blocks"):
+        batch_rows(dps[0], 3)
+    scoring = across_data(dps[5])
+    assert (scoring.rank, scoring.world, scoring.space) == (1, 2, 1)
+    plain = DataParallel(rank=1, world=2, device=torch.device("cpu"))
+    assert across_data(plain) is plain and across_data(None) is None
+
+
+def test_a_halo_taller_than_a_block_reads_several_ranks():
+    dp = DataParallel(rank=1, world=4, device=torch.device("cpu"), space=4)
+    # 1 row per block, dilation 4: rows -3..0 above rank 1 and 2..5 below;
+    # slot (rank * 2 + top/bottom) * block + offset, 8 = a zero row
+    assert _halo_index(dp, 1, 1, 4, 4, False).tolist() == [8, 8, 8, 0, 4, 6, 8, 8]
+    # the resize's edge rows repeat the image's first and last rows
+    dp0 = DataParallel(rank=0, world=4, device=torch.device("cpu"), space=4)
+    assert _halo_index(dp0, 2, 1, 1, 1, True).tolist() == [0, 2]
+
+
+def test_boundary_targets_come_from_whole_labels_at_a_shard_edge():
+    """A class edge on the rows beside a block boundary marks both rows;
+    derived from a row block alone, the block's edge row would lose it."""
+    labels = torch.zeros(1, 8, 4, dtype=torch.int32)
+    labels[:, 4:] = 3  # the edge lies between rows 3 and 4, the blocks' boundary
+    dp = DataParallel(rank=1, world=2, device=torch.device("cpu"), space=2)
+    targets, valid = loops._row_split_boundary(dp, labels, boundary_weight=1.0)
+    whole, _ = boundary_targets_from_labels(labels)
+    assert torch.equal(targets, whole[:, 4:]) and targets[0, 0].sum() == 4
+    alone, _ = boundary_targets_from_labels(shard_rows(dp, labels)[0])
+    assert alone.sum() == 0
+    assert loops._row_split_boundary(dp, labels, boundary_weight=0.0) is None
+
+
+def _argv(tmp_path, extra):
+    return (f"synthetic synthetic_shifted --net drn_d_14 --dtype float32 --batch_size 2 "
+            f"--train_img_shape 32 32 --max_samples 2 --epochs 1 --num_k 1 "
+            f"--out_dir {tmp_path / 'run'} " + extra).split()
+
+
+@pytest.mark.parametrize("extra,error,match", [
+    ("--spatial_devices 2", ValueError, "does not divide the 1 rank"),
+    ("--spatial_devices 3 --train_img_shape 32 48 --coordinator 127.0.0.1:1 "
+     "--num_processes 2 --process_id 0",
+     ValueError, "does not divide the 2 rank"),
+    ("--spatial_devices 4 --train_img_shape 32 48", ValueError, "multiple of 32"),
+    ("--spatial_devices 2 --net fcn8s_vgg16", NotImplementedError,
+     r"ROADMAP\.md Queue 1 item 13 \(spatial partitioning of FCN8s and PSPNet\)"),
+], ids=["one_process", "ranks", "height", "fcn8s"])
+def test_refused_layouts_raise_before_anything_is_written(extra, error, match, tmp_path):
+    with pytest.raises(error, match=match):
+        adapt_train.main(_argv(tmp_path, extra), device="cpu")
+    assert not os.path.exists(tmp_path / "run")
+
+
+def test_every_trainer_command_refuses_before_joining(tmp_path, monkeypatch):
+    """The refusals come before a group is joined: nothing waits for ranks."""
+    joined = []
+    monkeypatch.setattr(multihost, "initialize", lambda *a, **kw: joined.append(a))
+    for main, argv in ((source_train.main, "synthetic"), (multitask_train.main,
+                                                           "synthetic synthetic_shifted")):
+        with pytest.raises(NotImplementedError, match="item 13"):
+            main(f"{argv} --net psp --spatial_devices 2 --multihost --out_dir "
+                 f"{tmp_path / 'run'}".split(), device="cpu")
+    assert not joined and not os.path.exists(tmp_path / "run")
+
+
+def test_the_loops_refuse_what_the_commands_refuse():
+    check_spatial("drn_d_22", 32, 4)  # H/8 = 4 rows: one per block
+    check_spatial("psp", 30, 1)  # no layout, nothing to refuse
+    with pytest.raises(ValueError, match="multiple of 16"):
+        check_spatial("drn_c_26", 24, 2)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        check_spatial("pspnet", 32, 2)
+    ns = argparse.Namespace(spatial_devices=2, net="fcn8s", train_img_shape=[32, 32])
+    with pytest.raises(NotImplementedError, match="item 13"):
+        argparse_compat.reject_unported(ns)
+    argparse_compat.reject_unported(types.SimpleNamespace(net="psp"))  # a testing parser
