@@ -41,9 +41,13 @@ and ``adapt_test --all_devices``; then spatial partitioning (phase
 ``spatial``): HHA's batch invariance, ranks sharing the card that each hold
 a row block of every activation held to one process in float64 (1x2 and
 1x4 layouts), ``adapt_train --spatial_devices 2`` at full width as two
-ranks beside one process (peak memory per rank) and
-``tools.spatial_memory_table``; and it checks that each path launched the
-kernels. Every phase prints one JSON line
+ranks beside one process (peak memory per rank),
+``tools.spatial_memory_table``, and the same for FCN8s and PSPNet (float64
+1x2 layouts held to one process; ``--net psp`` at 640x480 and ``--net
+fcn8s_vgg16`` at 1024x512 as two ranks); then the profiling tools (phase
+``profile``): ``tools.profile_step`` at its defaults (batch 24) with its
+device time by category, and ``tools.profile_input_pipeline``; and it
+checks that each path launched the kernels. Every phase prints one JSON line
 and any failure raises (exit code != 0), a ptxas spill included. Kernel
 times are L2-cold, as the serving path finds its inputs: each timing
 rotates over input sets that together move 3x the 50 MB L2, and a reading
@@ -591,30 +595,36 @@ def _train_profile(iterate, state, src, tgt, top=8, groups=()):
     of kernel and copy times on its one stream) against the iteration's
     wall time under the profiler, the kernels that take the most, and the
     device time of the kernels whose names contain each of ``groups``."""
+    wall_ms, rows = _profiled_rows(lambda: iterate(state, src, tgt))
+    busy_ms = sum(r["ms"] for r in rows)
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
+           "top_kernels": [{"name": r["name"][:120], "ms": r["ms"], "calls": r["calls"]}
+                           for r in rows[:top]]}
+    if groups:
+        out["group_ms"] = {g: sum(r["ms"] for r in rows if g in r["name"].lower())
+                           for g in groups}
+        out["group_calls"] = {g: sum(r["calls"] for r in rows if g in r["name"].lower())
+                              for g in groups}
+    return out
+
+
+def _profiled_rows(fn):
+    """One call of ``fn`` under ``torch.profiler``: its wall ms and the
+    card's rows by device time (``tools.profile_step.profile_rows``: kernels,
+    copies and sets; an operator's row would repeat its kernels' time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from mcseg_tpu_torch.tools.profile_step import profile_rows
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        iterate(state, src, tgt)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side rows only: an operator's row repeats its kernels' time
-    rows = [r for r in prof.key_averages()
-            if r.device_type == torch.autograd.DeviceType.CUDA and r.self_device_time_total > 0]
-    busy_ms = sum(r.self_device_time_total for r in rows) / 1e3
-    rows.sort(key=lambda r: r.self_device_time_total, reverse=True)
-    out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-           "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
-           "top_kernels": [{"name": r.key[:120], "ms": r.self_device_time_total / 1e3,
-                            "calls": r.count} for r in rows[:top]]}
-    if groups:
-        out["group_ms"] = {g: sum(r.self_device_time_total for r in rows
-                                  if g in r.key.lower()) / 1e3 for g in groups}
-        out["group_calls"] = {g: sum(r.count for r in rows if g in r.key.lower())
-                              for g in groups}
-    return out
+    return wall_ms, profile_rows(prof)[0]
 
 
 def _convt_fwd_bwd_ms(state, src, cfg):
@@ -1763,25 +1773,15 @@ def _profile_request(fn, top=6):
     """One call of ``fn`` under ``torch.profiler``: wall ms, the card's busy
     ms (kernel and copy rows), its idle share, the kernel count, the rows
     of the normalize kernel and ``top`` rows by device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [r for r in prof.key_averages()
-            if r.device_type == torch.autograd.DeviceType.CUDA and r.self_device_time_total > 0]
-    busy_ms = sum(r.self_device_time_total for r in rows) / 1e3
-    rows.sort(key=lambda r: r.self_device_time_total, reverse=True)
-    as_dict = lambda r: {"name": r.key[:160], "calls": r.count,  # noqa: E731
-                         "ms": r.self_device_time_total / 1e3}
+    wall_ms, rows = _profiled_rows(fn)
+    busy_ms = sum(r["ms"] for r in rows)
+    as_dict = lambda r: {"name": r["name"][:160], "calls": r["calls"],  # noqa: E731
+                         "ms": r["ms"]}
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms, "kernel_rows": len(rows),
-            "kernel_calls": sum(r.count for r in rows),
-            "normalize_kernel": [as_dict(r) for r in rows if "normalize_stack_kernel" in r.key],
+            "kernel_calls": sum(r["calls"] for r in rows),
+            "normalize_kernel": [as_dict(r) for r in rows
+                                 if "normalize_stack_kernel" in r["name"]],
             "top": [as_dict(r) for r in rows[:top]]}
 
 
@@ -2771,6 +2771,19 @@ SPATIAL_ITERATIONS = 3
 # (a): (data blocks x row blocks) layouts of ranks sharing the card, float64
 SPATIAL_LAYOUTS = ({"space": 2, "hw": (48, 64), "batch": 4},
                    {"space": 4, "hw": (32, 64), "batch": 4})
+# (d): the other two trunks, 1x2, float64, RGB, ``num_k`` 1, 1 iteration. FCN8s
+# at 32x64 (W x H: one row per block at /32 against conv6's halo of 3); PSP
+# at 48x32, where the /8 map (4 x 6) takes both pyramid paths, at batch 4: at
+# batch 2 its 1-bin branch's BN normalizes two nearly equal values and any
+# other summation order moves the gradient by ~1e-8 (tests/test_torch_spatial_cli.py)
+SPATIAL_TRUNK_LAYOUTS = (
+    {"space": 2, "hw": (64, 32), "batch": 2, "net": "fcn8s_vgg16", "input_ch": 3,
+     "num_k": 1, "iterations": 1},
+    {"space": 2, "hw": (32, 48), "batch": 4, "net": "psp", "input_ch": 3, "num_k": 1,
+     "iterations": 1})
+# (e): the train cell's command with the other two trunks (--net, W, H); FCN8s
+# at 1024x512 because 480 rows do not split in 2 at its /32 level
+SPATIAL_FULL_TRUNKS = (("psp", W, H), ("fcn8s_vgg16", 1024, 512))
 SPATIAL_FIT_BATCHES = "8,16,24"  # (c) --mode fit at 640x480, well inside 80 GB
 # (c) beside the card's table: the JAX package's on a TPU v5e (15.75 GB HBM),
 # XLA's compile-time numbers, docs/ARCHITECTURE.md:381-399 (not the port's)
@@ -2784,88 +2797,110 @@ JAX_V5E_TABLE = {
         "1": "5.77 GB", "2": "4.38 GB", "4": "3.47 GB", "8": "3.04 GB"}}
 
 
-def _spatial_config(out_dir, hw, batch):
-    """Phase ``spatial`` (a): drn_d_22 in float64, RGB+HHA from depth, 40
-    classes, convt heads, ``num_k`` 2, SPATIAL_ITERATIONS MCD iterations of
-    global batch ``batch`` at ``hw`` (H, W) (one epoch)."""
+def _spatial_config(out_dir, layout):
+    """Phase ``spatial`` (a) and (d): ``layout``'s net (drn_d_22 unless
+    given) in float64 from its ``input_ch`` (RGB+HHA from depth unless
+    given), 40 classes, convt heads, ``num_k`` (2 unless given), its
+    ``iterations`` (SPATIAL_ITERATIONS unless given) MCD iterations of global
+    batch ``batch`` at ``hw`` (H, W) (one epoch)."""
     from mcseg_tpu_torch.core.config import (
         DataConfig, ExperimentConfig, ModelConfig, TrainConfig)
 
+    (h, w), batch = layout["hw"], layout["batch"]
+    input_ch = layout.get("input_ch", 6)
     return ExperimentConfig(
-        model=ModelConfig(net="drn_d_22", input_ch=6, n_class=40, dtype="float64",
-                          upsample="convt"),
+        model=ModelConfig(net=layout.get("net", "drn_d_22"), input_ch=input_ch, n_class=40,
+                          dtype="float64", upsample="convt"),
         data=DataConfig(src_dataset="synthetic", tgt_dataset="synthetic_shifted",
-                        batch_size=batch, train_img_shape=(hw[1], hw[0]),
-                        test_img_shape=(hw[1], hw[0]), input_ch=6,
-                        max_samples=SPATIAL_ITERATIONS * batch, num_workers=0),
-        train=TrainConfig(lr=0.01, num_k=2, epochs=1, max_steps=100, log_every=1, seed=0,
-                          out_dir=out_dir))
+                        batch_size=batch, train_img_shape=(w, h), test_img_shape=(w, h),
+                        input_ch=input_ch, num_workers=0,
+                        max_samples=layout.get("iterations", SPATIAL_ITERATIONS) * batch),
+        train=TrainConfig(lr=0.01, num_k=layout.get("num_k", 2), epochs=1, max_steps=100,
+                          log_every=1, seed=0, out_dir=out_dir, checkpoint_every_epochs=0))
 
 
-def _spatial_rank_job(rank, layout, port, out_dir):
+def _spatial_rank_job(rank, layouts, ports, out_dir):
     """One of ``layout["space"]`` ranks sharing the card through gloo, in
-    one data block of that many row blocks: ``train_adapt`` of
-    ``_spatial_config``; writes its state to ``out_dir/state<rank>.pt``
-    and prints one JSON line."""
+    one data block of that many row blocks, for each of ``layouts`` in turn
+    (a group of its own on each of ``ports``): ``train_adapt`` of
+    ``_spatial_config``; rank 0 writes each state to
+    ``out_dir/<i>_state.pt``, every rank reports its state's digest; prints
+    one JSON line, a list of reports."""
     import torch
 
     from mcseg_tpu_torch.ops.normalize import fused_normalize_stack
     from mcseg_tpu_torch.parallel import multihost
     from mcseg_tpu_torch.train.loops import train_adapt
 
-    space = layout["space"]
-    dp = multihost.initialize(f"127.0.0.1:{port}", space, rank, "cuda:0", backend="gloo",
-                              spatial=space)
-    try:
-        cfg = _spatial_config(os.path.join(out_dir, f"rank{rank}"), layout["hw"],
-                              layout["batch"])
-        fused_normalize_stack.launches = 0
-        state = train_adapt(cfg, dp=dp)
-        torch.save(_state_tensors(state), os.path.join(out_dir, f"state{rank}.pt"))
-        print(json.dumps({"rank": rank, "space_rank": dp.space_rank,
-                          "iterations": state.step,
-                          "launches": fused_normalize_stack.launches,
-                          "backend": torch.distributed.get_backend()}), flush=True)
-    finally:
-        multihost.shutdown()
+    reports = []
+    for i, (layout, port) in enumerate(zip(layouts, ports)):
+        space = layout["space"]
+        dp = multihost.initialize(f"127.0.0.1:{port}", space, rank, "cuda:0",
+                                  backend="gloo", spatial=space)
+        try:
+            cfg = _spatial_config(os.path.join(out_dir, f"{i}_rank{rank}"), layout)
+            fused_normalize_stack.launches = 0
+            state = train_adapt(cfg, dp=dp)
+            tensors = _state_tensors(state)
+            if rank == 0:
+                torch.save(tensors, os.path.join(out_dir, f"{i}_state.pt"))
+            reports.append({"rank": rank, "space_rank": dp.space_rank,
+                            "iterations": state.step,
+                            "launches": fused_normalize_stack.launches,
+                            "digest": _digest(tensors),
+                            "backend": torch.distributed.get_backend()})
+            del state, tensors
+        finally:
+            multihost.shutdown()
+    print(json.dumps(reports), flush=True)
 
 
 def _spatial_full_job(arg):
-    """Phase ``spatial`` (b): ``adapt_train.main(argv)`` on the card, as
-    rank ``rank`` of 2 sharing it (``--spatial_devices 2`` over gloo) or,
-    with ``rank`` None, in one process; each iteration timed on the host
-    clock around a synchronize (``_timed_main``). Prints one JSON line: the
-    launches, the peak memory, the losses and the tensors training left
-    unchanged."""
+    """Phase ``spatial`` (b) and (e): ``adapt_train.main(argv)`` of each of
+    ``argvs`` in turn on the card, as rank ``rank`` of 2 sharing it
+    (``--spatial_devices 2`` over gloo, command i's group on ``ports[i]``)
+    or, with ``rank`` None, in one process; each iteration timed on the
+    host clock around a synchronize (``_timed_main``). Prints one JSON
+    line, a report per command: the launches, the peak memory, the losses
+    and the tensors training left unchanged."""
+    import gc
+
     import torch
 
     from mcseg_tpu_torch.train import loops
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    argv, rank, port = json.loads(arg)
-    if rank is not None:
-        argv = argv + ["--spatial_devices", "2", "--coordinator", f"127.0.0.1:{port}",
-                       "--num_processes", "2", "--process_id", str(rank)]
-    created = {}
-    create = loops.create_train_state
+    argvs, rank, ports = json.loads(arg)
+    reports = []
+    for i, argv in enumerate(argvs):
+        if rank is not None:
+            argv = argv + ["--spatial_devices", "2", "--coordinator",
+                           f"127.0.0.1:{ports[i]}", "--num_processes", "2", "--process_id",
+                           str(rank)]
+        created = {}
+        create = loops.create_train_state
 
-    def snapshot_create(*a, **kw):
-        state = create(*a, **kw)
-        created["state"] = state
-        created["before"] = _snapshot(state)
-        return state
+        def snapshot_create(*a, **kw):
+            state = create(*a, **kw)
+            created["state"] = state
+            created["before"] = _snapshot(state)
+            return state
 
-    loops.create_train_state = snapshot_create
-    torch.cuda.reset_peak_memory_stats()
-    try:
-        report = _timed_main(argv)
-    finally:
-        loops.create_train_state = create
-    report.pop("profile")
-    report["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    report["unchanged"] = _unchanged(created["before"], _snapshot(created["state"]))
-    print(json.dumps(report), flush=True)
+        loops.create_train_state = snapshot_create
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            report = _timed_main(argv)
+        finally:
+            loops.create_train_state = create
+        report.pop("profile")
+        report["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        report["unchanged"] = _unchanged(created["before"], _snapshot(created["state"]))
+        reports.append(report)
+        created.clear()
+    print(json.dumps(reports), flush=True)
 
 
 def _memory_table(mode, *flags):
@@ -2890,6 +2925,73 @@ def _table_rows(proc, what, timeout=600):
     return rows
 
 
+def _digest(tensors):
+    """A SHA-256 of ``_state_tensors`` (names, dtypes, shapes, bytes): equal
+    digests are bit-equal states."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(tensors):
+        t = tensors[k]
+        h.update(f"{k}:{t.dtype}:{tuple(t.shape)}".encode())
+        h.update(t.numpy().tobytes())
+    return h.hexdigest()
+
+
+def _spatial_equality(layout, out, ranks, prefix, single, single_launches, failures, what):
+    """(a)/(d)'s row: rank 0's state ``out/<prefix>_state.pt`` against the
+    1-process ``single`` state, and every rank's digest against rank 0's
+    (the replicas bit-equal); the failures it adds."""
+    import torch
+
+    iterations = layout.get("iterations", SPATIAL_ITERATIONS)
+    diffs = [_max_rel_diff(torch.load(os.path.join(out, f"{prefix}_state.pt")), single)]
+    if any(r["digest"] != ranks[0]["digest"] for r in ranks):
+        failures.append(f"({what}) {layout.get('net', 'drn_d_22')}: the replicas differ")
+    row = {"layout": f"1x{layout['space']}", "hw": list(layout["hw"]),
+           "batch": layout["batch"], "net": layout.get("net", "drn_d_22"),
+           "input_ch": layout.get("input_ch", 6), "num_k": layout.get("num_k", 2),
+           "dtype": "float64", "backend": ranks[0]["backend"],
+           "iterations": [r["iterations"] for r in ranks],
+           "launches_per_rank": [r["launches"] for r in ranks],
+           "single_process_launches": single_launches,
+           "max_rel_diff_vs_one_process": diffs, "bound": SPATIAL_BOUND,
+           "replicas_bit_equal": len({r["digest"] for r in ranks}) == 1}
+    if max(diffs) > SPATIAL_BOUND:
+        failures.append(f"({what}) {row['net']} {row['layout']}: {max(diffs)} > {SPATIAL_BOUND}")
+    if any(r["iterations"] != iterations or r["launches"] != 2 * iterations for r in ranks):
+        failures.append(f"({what}) {row['net']} {row['layout']}: ranks {ranks}")
+    return row
+
+
+def _full_width_row(name, argv_hw, two, one, losses, failures, what):
+    """(b)/(e)'s report of one command: 2 ranks sharing the card against 1
+    process; the failures it adds."""
+    net, w, h = argv_hw
+    row = {"net": net, "input_ch": 6, "hw": [h, w], "batch": B, "dtype": "bfloat16",
+           "num_k": 4, "iterations": [r["iterations"] for r in two],
+           "launches_per_rank": [r["launches"] for r in two],
+           "peak_mem_gb_per_rank": [r["peak_mem_gb"] for r in two],
+           "one_process_peak_mem_gb": one["peak_mem_gb"],
+           "peak_ratio_per_rank": [r["peak_mem_gb"] / one["peak_mem_gb"] for r in two],
+           "ms_per_iteration_two_ranks_contending": [r["ms_per_iteration_all"] for r in two],
+           "losses_rank0_log": [{k: r[k] for k in ("loss_source", "loss_b", "loss_dis")}
+                                for r in losses],
+           "unchanged": [r["unchanged"][:5] for r in two], "one_process": {
+               "iterations": one["iterations"], "launches": one["launches"],
+               "unchanged": one["unchanged"][:5]}}
+    for r in two + [one]:
+        if r["iterations"] != SPATIAL_ITERATIONS or r["launches"] != 2 * SPATIAL_ITERATIONS:
+            failures.append(f"({what}) {name}: {r['iterations']} iterations, "
+                            f"{r['launches']} launches")
+        if r["unchanged"]:
+            failures.append(f"({what}) {name}: training left tensors unchanged: "
+                            f"{r['unchanged'][:5]}")
+    if len(losses) != SPATIAL_ITERATIONS:
+        failures.append(f"({what}) {name}: {len(losses)} logged iterations")
+    return row
+
+
 def phase_spatial(smi_line):
     """Spatial partitioning on the card (``--spatial_devices``): HHA's
     batch invariance first (one image's HHA at batch 1, 4 and 8, which
@@ -2907,9 +3009,14 @@ def phase_spatial(smi_line):
     the feature);
     (c) ``tools.spatial_memory_table`` ``--mode fit`` at 640x480 and
     ``--mode spatial`` at 2048x1024 for 1, 2 and 4 ranks, beside the JAX
-    package's TPU v5e table. (a), (c) and (b)'s one process run together
-    (memory and float64 results do not depend on contention), then (b)'s
-    two ranks alone. Files under build/spatial_*, removed at the end."""
+    package's TPU v5e table; (d) the other two trunks as (a) in a 1x2
+    layout, RGB, ``num_k`` 1, 1 iteration (``SPATIAL_TRUNK_LAYOUTS``):
+    fcn8s_vgg16 at 64x32 and psp at 32x48 (H x W), within 1e-9; (e) (b)'s
+    command with ``--net psp`` at 640x480 and ``--net fcn8s_vgg16`` at
+    1024x512, with (b)'s gates. (a), (c), (d) and (b)'s and (e)'s one
+    process run together (memory and float64 results do not depend on
+    contention), then the two ranks of (b) and (e) alone. Files under
+    build/spatial_*, removed at the end."""
     import tempfile
 
     import torch
@@ -2932,93 +3039,147 @@ def phase_spatial(smi_line):
             out = os.path.join(tmp, f"a{i}")
             os.makedirs(out)
             port = _free_port()
-            jobs.append((layout, out, [
-                _job(f"import chip_smoke as c; c._spatial_rank_job({r}, {layout!r}, {port}, "
-                     f"{out!r})") for r in range(layout["space"])]))
+            jobs.append(([layout], out, [
+                _job(f"import chip_smoke as c; c._spatial_rank_job({r}, {[layout]!r}, "
+                     f"{[port]!r}, {out!r})") for r in range(layout["space"])]))
+        trunks_out = os.path.join(tmp, "d")
+        os.makedirs(trunks_out)
+        ports = [_free_port() for _ in SPATIAL_TRUNK_LAYOUTS]
+        trunk_job = (list(SPATIAL_TRUNK_LAYOUTS), trunks_out, [
+            _job(f"import chip_smoke as c; c._spatial_rank_job({r}, "
+                 f"{list(SPATIAL_TRUNK_LAYOUTS)!r}, {ports!r}, {trunks_out!r})")
+            for r in range(2)])
         fit = _memory_table("fit", "--img_shape", f"{W}x{H}", "--num_k", "4",
                             "--batches", SPATIAL_FIT_BATCHES)
         spatial = _memory_table("spatial", "--img_shape", "2048x1024", "--n_devices", "4")
-        # (b)'s command in one process, for its peak memory (its time would
-        # be the contended one: phase train times that iteration alone)
-        argv = (["synthetic", "synthetic_shifted", "--num_k", "4"]
-                + _cli_argv(os.path.join(tmp, "b"))
-                + ["--max_samples", str(SPATIAL_ITERATIONS * B)])
-        one = _job("import chip_smoke as c; c._spatial_full_job(%r)"
-                   % json.dumps([argv + ["--out_dir", os.path.join(tmp, "b1")], None, None]))
-        equality = []
-        for layout, out, procs in jobs:
-            fused_normalize_stack.launches = 0
-            single = train_adapt(_spatial_config(os.path.join(out, "one"), layout["hw"],
-                                                 layout["batch"]), device=DEVICE)
-            single_launches = fused_normalize_stack.launches
-            want = _state_tensors(single)
-            del single
-            ranks = [_finish(p, f"rank {r} of 1x{layout['space']}")
-                     for r, p in enumerate(procs)]
-            diffs = [_max_rel_diff(torch.load(os.path.join(out, f"state{r}.pt")), want)
-                     for r in range(layout["space"])]
-            row = {"layout": f"1x{layout['space']}", "hw": list(layout["hw"]),
-                   "batch": layout["batch"], "net": "drn_d_22", "input_ch": 6,
-                   "dtype": "float64", "backend": ranks[0]["backend"],
-                   "iterations": [r["iterations"] for r in ranks],
-                   "launches_per_rank": [r["launches"] for r in ranks],
-                   "single_process_launches": single_launches,
-                   "max_rel_diff_vs_one_process": diffs, "bound": SPATIAL_BOUND}
-            equality.append(row)
-            if max(diffs) > SPATIAL_BOUND:
-                failures.append(f"(a) {row['layout']}: {max(diffs)} > {SPATIAL_BOUND}")
-            if any(r["iterations"] != SPATIAL_ITERATIONS
-                   or r["launches"] != 2 * SPATIAL_ITERATIONS for r in ranks):
-                failures.append(f"(a) {row['layout']}: ranks {ranks}")
+        # (b)'s and (e)'s commands in one process, for their peak memory
+        # (their times would be the contended ones: phase train times the
+        # DRN iteration alone)
+        commands = [("drn_d_38", W, H)] + list(SPATIAL_FULL_TRUNKS)
+        argvs = [["synthetic", "synthetic_shifted", "--num_k", "4"]
+                 + _cli_argv(os.path.join(tmp, f"b{i}"))
+                 + ["--max_samples", str(SPATIAL_ITERATIONS * B), "--net", net,
+                    "--train_img_shape", str(w), str(h), "--checkpoint_every_epochs", "0"]
+                 for i, (net, w, h) in enumerate(commands)]
+        one = _job("import chip_smoke as c; c._spatial_full_job(%r)" % json.dumps(
+            [[a + ["--out_dir", os.path.join(tmp, f"b{i}_one")] for i, a in enumerate(argvs)],
+             None, None]))
+        equality, trunks = [], []
+        for layouts, out, procs in jobs + [trunk_job]:
+            ranks = [_finish(p, f"ranks of {[lay.get('net', 'drn_d_22') for lay in layouts]}")
+                     for p in procs]
+            for i, layout in enumerate(layouts):
+                fused_normalize_stack.launches = 0
+                single = train_adapt(_spatial_config(os.path.join(out, f"{i}_one"), layout),
+                                     device=DEVICE)
+                single_launches = fused_normalize_stack.launches
+                want = _state_tensors(single)
+                del single
+                what = "d" if layout in SPATIAL_TRUNK_LAYOUTS else "a"
+                (trunks if what == "d" else equality).append(_spatial_equality(
+                    layout, out, [r[i] for r in ranks], i, want, single_launches, failures,
+                    what))
+                del want
         table = {"fit_640x480": _table_rows(fit, "spatial_memory_table --mode fit"),
                  "spatial_2048x1024": _table_rows(spatial,
                                                   "spatial_memory_table --mode spatial")}
-        one = _finish(one, "the full-width command in 1 process")
-        steps["a_c_and_one_process"] = time.perf_counter() - t_phase - steps["hha"]
+        one = _finish(one, "the full-width commands in 1 process", timeout=900)
+        steps["a_c_d_and_one_process"] = time.perf_counter() - t_phase - steps["hha"]
         if not any(r.get("fits") for r in table["fit_640x480"].values()) \
                 or len(table["spatial_2048x1024"]) != 3:
             failures.append(f"(c): {table}")
 
-        # (b)'s two ranks alone on the card
+        # (b)'s and (e)'s two ranks alone on the card, one command after the other
         torch.cuda.empty_cache()
-        port = _free_port()
+        ports = [_free_port() for _ in argvs]
         two = [_job("import chip_smoke as c; c._spatial_full_job(%r)"
-                    % json.dumps([argv, r, port]), env={"MCSEG_DIST_BACKEND": "gloo"})
+                    % json.dumps([argvs, r, ports]), env={"MCSEG_DIST_BACKEND": "gloo"})
                for r in range(2)]
-        two = [_finish(p, f"rank {r} of --spatial_devices 2 at full width")
+        two = [_finish(p, f"rank {r} of --spatial_devices 2 at full width", timeout=900)
                for r, p in enumerate(two)]
-        steps["b_two_ranks"] = time.perf_counter() - t_phase - sum(steps.values())
-        losses = _logged(os.path.join(tmp, "b"), ("loss_source", "loss_b", "loss_dis"))
-    full = {"net": "drn_d_38", "input_ch": 6, "hw": [H, W], "batch": B, "dtype": "bfloat16",
-            "num_k": 4, "iterations": [r["iterations"] for r in two],
-            "launches_per_rank": [r["launches"] for r in two],
-            "peak_mem_gb_per_rank": [r["peak_mem_gb"] for r in two],
-            "one_process_peak_mem_gb": one["peak_mem_gb"],
-            "peak_ratio_per_rank": [r["peak_mem_gb"] / one["peak_mem_gb"] for r in two],
-            "ms_per_iteration_two_ranks_contending": [r["ms_per_iteration_all"] for r in two],
-            "losses_rank0_log": [{k: r[k] for k in ("loss_source", "loss_b", "loss_dis")}
-                                 for r in losses],
-            "unchanged": [r["unchanged"][:5] for r in two], "one_process": {
-                "iterations": one["iterations"], "launches": one["launches"]},
-            "note": "ms: host clock around each iteration ended by a synchronize; two ranks "
-                    "share one card and exchange every conv's halo over gloo through the "
-                    "host: contention, not a rate of the feature. The 1-process run (peak "
-                    "memory) runs beside (a) and (c), so its time is not reported"}
-    for r in two:
-        if r["iterations"] != SPATIAL_ITERATIONS or r["launches"] != 2 * SPATIAL_ITERATIONS:
-            failures.append(f"(b): {r['iterations']} iterations, {r['launches']} launches")
-        if r["unchanged"]:
-            failures.append(f"(b): training left tensors unchanged: {r['unchanged'][:5]}")
-    if len(losses) != SPATIAL_ITERATIONS:
-        failures.append(f"(b): {len(losses)} logged iterations")
-    report = {"hha_batch_invariance": hha, "equality": equality, "full_width": full,
+        steps["b_e_two_ranks"] = time.perf_counter() - t_phase - sum(steps.values())
+        full = [_full_width_row(cmd[0], cmd, [t[i] for t in two], one[i],
+                                _logged(os.path.join(tmp, f"b{i}"),
+                                        ("loss_source", "loss_b", "loss_dis")),
+                                failures, "b" if i == 0 else "e")
+                for i, cmd in enumerate(commands)]
+    note = ("ms: host clock around each iteration ended by a synchronize; two ranks share "
+            "one card and exchange every conv's halo over gloo through the host: "
+            "contention, not a rate of the feature. The 1-process runs (peak memory) run "
+            "beside (a), (c) and (d), so their times are not reported")
+    report = {"hha_batch_invariance": hha, "equality": equality, "full_width": full[0],
               "memory_table": table, "jax_package_tpu_v5e_table": JAX_V5E_TABLE,
+              "trunks_equality": trunks, "trunks_full_width": full[1:], "note": note,
               "step_seconds": steps, "phase_seconds": time.perf_counter() - t_phase}
-    launches = (sum(sum(r["launches_per_rank"]) for r in equality)
-                + sum(full["launches_per_rank"]))
-    emit("spatial", card=smi_line, spatial_launches=launches, **report)
+    launches = (sum(sum(r["launches_per_rank"]) for r in equality + trunks)
+                + sum(sum(r["launches_per_rank"]) for r in full))
+    emit("spatial", card=smi_line, spatial_launches=launches,
+         trunk_launches={"d": {r["net"]: r["launches_per_rank"] for r in trunks},
+                         "e": {r["net"]: r["launches_per_rank"] for r in full[1:]}},
+         **report)
     if failures:
         raise AssertionError(f"phase spatial: {failures}")
+    return launches
+
+
+PROFILE_STEPS = 3  # tools.profile_step's default: steps timed, then traced
+PROFILE_SUM_TOLERANCE = 1e-3  # the categories against the total, relative
+
+
+def phase_profile(smi_line):
+    """The profiling tools on the card: ``tools.profile_step`` at its
+    defaults (DRN-D-38 RGB+HHA, 40 classes, bf16, batch 24, 640x480, ``num_k``
+    4: one warm-up, 3 timed iterations, 3 traced) — ms per iteration,
+    images/s and the device time by category, which must add up to the
+    total within 0.1%, with the normalize kernel at 2 launches per
+    iteration; then ``tools.profile_input_pipeline --synth 48 --batch 8
+    --img_shape 640x480 --num_workers 4``, whose timed windows must decode
+    nothing. Files under build/profile_*, removed at the end."""
+    import tempfile
+
+    from mcseg_tpu_torch.ops.normalize import fused_normalize_stack
+    from mcseg_tpu_torch.tools import profile_input_pipeline, profile_step
+
+    t_phase = time.perf_counter()
+    failures = []
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build"), prefix="profile_") as tmp:
+        fused_normalize_stack.launches = 0
+        step = profile_step.main(["--trace_dir", os.path.join(tmp, "trace")], device="cuda")
+        launches = fused_normalize_stack.launches
+        trace_mb = os.path.getsize(step["trace"]) / 1e6
+        t_step = time.perf_counter() - t_phase
+        pipeline = profile_input_pipeline.main([
+            "--data_root", os.path.join(tmp, "corpus"), "--synth", "48", "--batch", "8",
+            "--img_shape", "640x480", "--num_workers", "4"])
+    cats = step["categories"]
+    cat_sum = sum(c["ms"] for c in cats.values())
+    if step["time"] != "device" or abs(cat_sum - step["total_ms"]) > \
+            PROFILE_SUM_TOLERANCE * step["total_ms"]:
+        failures.append(f"profile_step: categories {cat_sum} ms against {step['total_ms']} "
+                        f"({step['time']} time)")
+    if cats["normalize_stack"]["calls"] != 2:
+        failures.append(f"profile_step: normalize_stack {cats['normalize_stack']['calls']} "
+                        "launches per step in the trace")
+    if launches != 2 * (1 + 2 * PROFILE_STEPS):
+        failures.append(f"profile_step: {launches} kernel launches in "
+                        f"{1 + 2 * PROFILE_STEPS} iterations")
+    if pipeline["timed_window_decodes"] != 0:
+        failures.append(f"profile_input_pipeline: {pipeline['timed_window_decodes']} decodes "
+                        "in the timed windows")
+    emit("profile", card=smi_line, profile_launches=launches, step={
+        "net": "drn_d_38", "input_ch": 6, "batch": 24, "hw": [H, W], "num_k": 4,
+        "dtype": "bfloat16", "ms_per_iteration": step["ms_per_step"],
+        "images_per_s": step["images_per_s"], "loss_source": step["loss_source"],
+        "device_ms_per_iteration": step["total_ms"], "categories": cats,
+        "category_sum_ms": cat_sum, "top": step["top"][:12], "trace_mb": trace_mb,
+        "seconds": t_step,
+        "note": "ms_per_iteration: host clock over 3 iterations after a warm-up, "
+                "unprofiled; categories: device self time of the 3 traced iterations, "
+                "per iteration"},
+         input_pipeline=pipeline, phase_seconds=time.perf_counter() - t_phase)
+    if failures:
+        raise AssertionError(f"phase profile: {failures}")
     return launches
 
 
@@ -3052,6 +3213,7 @@ def main():
     interop_launches = phase_interop(smi_line)
     parallel_launches = phase_parallel(smi_line, staged_ms)
     spatial_launches = phase_spatial(smi_line)
+    profile_launches = phase_profile(smi_line)
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [{
         "name": "fused_normalize_stack", "route": "cuda", "source": KERNEL_SRC,
@@ -3065,6 +3227,7 @@ def main():
         "family_launches": family_launches, "corpus_launches": corpus_launches,
         "deploy_launches": deploy_launches, "interop_launches": interop_launches,
         "parallel_launches": parallel_launches, "spatial_launches": spatial_launches,
+        "profile_launches": profile_launches,
         "train_case_ms": train_case["kernel_ms"],
         "train_case_share_of_bound": train_case["share_of_bound"],
         "c7_case_ms": c7_case["kernel_ms"], "c7_case_bound_ms": c7_case["bound_ms"],

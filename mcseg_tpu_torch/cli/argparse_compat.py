@@ -13,10 +13,10 @@ on it. ``--multihost`` / ``--coordinator`` / ``--num_processes`` /
 (``parallel/multihost.py``), ``--spatial_devices`` splits the rows of its
 activations over that many of the ranks (``parallel/spatial.py``), and
 ``--all_devices`` scores on every card of the process. ``reject_unported``
-refuses, before anything runs, the layouts the port cannot run: FCN8s or
-PSPNet with ``--spatial_devices`` above 1 (``NotImplementedError``, naming
-the ROADMAP item that would port them) and a train height the row blocks
-do not divide at every trunk level (``ValueError``).
+refuses, before anything runs, a ``--spatial_devices`` layout whose row
+blocks do not divide the train height at every level of the trunk
+(``ValueError``: a multiple of 8 x the blocks for DRN and PSPNet, of 32 x
+the blocks for FCN8s).
 """
 
 from __future__ import annotations
@@ -70,7 +70,8 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
                         "(0 = keep all; 'last' is never pruned)")
     p.add_argument("--spatial_devices", type=int, default=1,
                    help="split activation rows over this many ranks of the job "
-                        "(DRN trunks; must divide the ranks)")
+                        "(must divide the ranks; the train height a multiple of 8x "
+                        "it, 32x for FCN8s)")
     p.add_argument("--multihost", action="store_true",
                    help="one rank of a data-parallel job launched by torchrun "
                         "(env://), one process per card")
@@ -184,9 +185,9 @@ def get_testing_parser(name: str = "test") -> argparse.ArgumentParser:
 
 def reject_unported(args: argparse.Namespace) -> None:
     """Refuse a ``--spatial_devices`` layout the port cannot run
-    (``parallel.spatial.check_spatial``: ``NotImplementedError`` for FCN8s
-    and PSPNet, ``ValueError`` for a train height the row blocks do not
-    divide); a parser without the flag passes."""
+    (``parallel.spatial.check_spatial``: ``ValueError`` for a train height
+    the row blocks do not divide at every level of the trunk); a parser
+    without the flag passes."""
     space = getattr(args, "spatial_devices", 1)
     if space > 1:
         check_spatial(args.net, fix_img_shape_args(args.train_img_shape)[1], space)

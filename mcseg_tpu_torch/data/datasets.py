@@ -103,6 +103,14 @@ class SegDataset:
                     self._disk_geom = geom
         return self._disk_cache
 
+    def share_disk_cache(self, other: "SegDataset") -> None:
+        """Serve ``other``'s disk-cache reads and writes from this reader's
+        cache (the same corpus at the same geometry: one set of memmaps,
+        opened once, here, under the lock)."""
+        cache, geom = self._disk, self._disk_geom
+        with other._disk_lock:
+            other._disk_cache, other._disk_geom = cache, geom
+
     def _bump(self, key: str, n: int = 1) -> None:
         with self._cache_lock:
             self.io_stats[key] += n

@@ -105,8 +105,8 @@ class BatchNorm2d(nn.BatchNorm2d):
 def set_data_parallel(module: nn.Module, dp: Optional[DataParallel]) -> None:
     """Set the data-parallel context of every ``BatchNorm2d`` of ``module``
     (None: statistics of the local batch), and its spatial layout on every
-    ``RowSplit`` module (the convs and the heads' upsample) when ``dp``
-    splits rows."""
+    ``RowSplit`` module (the convs, pools and upsamples that act on row
+    blocks) when ``dp`` splits rows."""
     spatial = dp if dp is not None and dp.space > 1 else None
     for m in module.modules():
         if isinstance(m, BatchNorm2d):

@@ -26,10 +26,10 @@ from mcseg_tpu_torch.models.fcn_vgg import FCN8sClassifier, VGG16FeatureGenerato
 from mcseg_tpu_torch.models.fusion import LateFusionClassifier, LateFusionGenerator
 from mcseg_tpu_torch.models.heads import BoundaryDetector, DepthRegressor, PixelClassifier
 from mcseg_tpu_torch.models.psp_net import PSPFeatureGenerator
+from mcseg_tpu_torch.parallel.spatial import FCN_NETS
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 AUX_HEADS = {"D": DepthRegressor, "B": BoundaryDetector}  # in checkpoint order
-FCN_NETS = ("fcn", "fcn8s", "fcn8s_vgg16")
 PSP_NETS = ("psp", "psp_net", "pspnet")
 
 

@@ -13,6 +13,14 @@ fine with 2x upsamples and upsamples 8x to full resolution (Long et al.).
   * The decoder crops each 2x upsample to its skip's extent before the
     add: a no-op at /32-divisible sizes.
 
+Under spatial partitioning in training (``parallel/spatial.py``, H a
+multiple of 32 x the row blocks) every conv is a ``models.drn.Conv2d``
+that takes its halo rows from the neighbouring blocks (``conv6``'s 3 rows
+may span several one-row blocks at /32), every pool stays within a block
+(each block has an even number of rows at every level and starts on an
+even row), and the decoder's 2x and 8x upsamples take the layout
+(``FCN8sClassifier`` is a ``RowSplit``), its skips then the same rows.
+
 Submodules are named after the flax tree (``conv1_1`` .. ``conv5_3``,
 ``conv6``, ``conv7``, ``score7/4/3``), so ``utils/jax_weights.py`` maps
 JAX weights by name. The JAX package's ``--s2d`` packed stage 1 computes
@@ -34,8 +42,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mcseg_tpu_torch.models.drn import Conv2d
 from mcseg_tpu_torch.ops.upsample import upsample_logits
-from mcseg_tpu_torch.parallel.mesh import DataParallel, local_batch_rows
+from mcseg_tpu_torch.parallel.mesh import DataParallel, batch_rows
+from mcseg_tpu_torch.parallel.spatial import RowSplit
 
 VGG16_STAGES = ((2, 64), (2, 128), (3, 256), (3, 512), (3, 512))  # (convs, channels)
 KEEP = 0.5  # Dropout(0.5): keep probability
@@ -50,8 +60,9 @@ class SeededMasks:
     resumed run draws the masks an uninterrupted one drew. Within an
     iteration the generator advances in call order. Under a data-parallel
     context ``data_parallel`` every rank draws the mask of the global batch
-    and keeps its rows (``parallel.mesh.local_batch_rows``), so rank r's
-    masks are rows r of a single process's."""
+    and keeps its data block's images (``parallel.mesh.batch_rows``) and,
+    under spatial partitioning, its row block of them, so every rank's
+    masks are its share of a single process's."""
 
     def __init__(self, seed: int, device, data_parallel: Optional[DataParallel] = None):
         self.seed, self.device = seed, torch.device(device)
@@ -67,10 +78,11 @@ class SeededMasks:
         dp = self.data_parallel
         if dp is None:
             return torch.rand(shape, generator=self.gen, device=device) < KEEP
-        full = (shape[0] * dp.world,) + tuple(shape[1:])
-        rows = local_batch_rows(dp.world, dp.rank, full[0])
+        full = (shape[0] * dp.data_blocks, shape[1], shape[2] * dp.space) + tuple(shape[3:])
+        images = batch_rows(dp, full[0])
         keep = torch.rand(full, generator=self.gen, device=device) < KEEP
-        return keep[int(rows[0]):int(rows[-1]) + 1]
+        keep = keep[int(images[0]):int(images[-1]) + 1]
+        return keep.narrow(2, dp.space_rank * shape[2], shape[2])
 
 
 class GivenMasks:
@@ -136,11 +148,11 @@ class VGG16FeatureGenerator(nn.Module):
         cin = input_ch
         for si, (n_convs, ch) in enumerate(VGG16_STAGES):
             for ci in range(n_convs):
-                self.add_module(f"conv{si + 1}_{ci + 1}", nn.Conv2d(cin, ch, 3, padding=1))
+                self.add_module(f"conv{si + 1}_{ci + 1}", Conv2d(cin, ch, 3, padding=1))
                 cin = ch
-        self.conv6 = nn.Conv2d(cin, self.out_dim, 7, padding=3)
+        self.conv6 = Conv2d(cin, self.out_dim, 7, padding=3)
         self.drop6 = Dropout()
-        self.conv7 = nn.Conv2d(self.out_dim, self.out_dim, 1)
+        self.conv7 = Conv2d(self.out_dim, self.out_dim, 1)
         self.drop7 = Dropout()
 
     def forward(self, x):
@@ -155,12 +167,13 @@ class VGG16FeatureGenerator(nn.Module):
         return feats[2], feats[3], y
 
 
-class FCN8sClassifier(nn.Module):
+class FCN8sClassifier(RowSplit, nn.Module):
     """The FCN8s decoder (an F network): score conv7 / pool4 / pool3 (1x1
     convs with bias), fuse with 2x upsamples, then 8x to full resolution.
     As in the JAX head, the scores are cast to at least float32 and the
     fusion and both upsamples run in that dtype (outside any bf16
-    autocast)."""
+    autocast). Under a spatial layout in training the features, the fused
+    maps and the output are row blocks."""
 
     def __init__(self, in_ch: int, n_class: int, upsample: str = "convt"):
         super().__init__()
@@ -175,10 +188,16 @@ class FCN8sClassifier(nn.Module):
         scores = [self.score7(conv7), self.score4(pool4), self.score3(pool3)]
         dt = torch.promote_types(scores[0].dtype, torch.float32)
         s7, s4, s3 = (s.to(dt) for s in scores)
+        dp = self.row_split()
         with torch.autocast(s7.device.type, enabled=False):
-            x = self._fuse(self._fuse(s7, s4), s3)  # /16, then /8
-            return upsample_logits(x, 8, self.upsample)
+            x = self._fuse(self._fuse(s7, s4, dp), s3, dp)  # /16, then /8
+            return upsample_logits(x, 8, self.upsample, dp)
 
-    def _fuse(self, coarse, skip):
-        up = upsample_logits(coarse, 2, self.upsample)
+    def _fuse(self, coarse, skip, dp: Optional[DataParallel]):
+        up = upsample_logits(coarse, 2, self.upsample, dp)
+        if dp is not None:
+            # a row block's crop by the whole map's extent would misplace
+            # rows; at the heights a layout allows there is nothing to crop
+            assert up.shape[2:] == skip.shape[2:], (tuple(up.shape), tuple(skip.shape))
+            return up + skip
         return up[:, :, :skip.shape[2], :skip.shape[3]] + skip

@@ -24,11 +24,14 @@ exchanges are explicit:
     all-gather that gloo also runs on CUDA tensors, for ranks sharing a
     card), and the backward is the same all-reduce of the gradients.
   * ``RowSplit``: the modules that act on row blocks in training
-    (``models/drn.py Conv2d``, the heads' 8x upsample), given the layout
-    by ``models.drn.set_data_parallel``.
+    (``models/drn.py Conv2d``, which every trunk's convs are, the heads'
+    upsamples, FCN8s's decoder, PSPNet's stem pool and pyramid pooling),
+    given the layout by ``models.drn.set_data_parallel``.
+  * ``across_space``: the ranks of this rank's data block, for sums over
+    the whole image's rows (PSPNet's pyramid bins, ``mesh.all_sum``).
   * ``shard_rows``: this rank's rows of whole preprocessed images.
-  * ``check_spatial``: the layouts the JAX package refuses, and the trunks
-    the port has not partitioned.
+  * ``check_spatial``: the layouts the JAX package refuses: a height the
+    row blocks do not divide at every level of the trunk (``trunk_stride``).
 
 BatchNorm, the losses and the gradients need nothing more: they reduce
 over all n ranks (``parallel/mesh.py``), each holding a disjoint share.
@@ -43,28 +46,32 @@ import torch.distributed as dist
 
 from mcseg_tpu_torch.parallel.mesh import DataParallel
 
-TRUNK_STRIDE = 8  # DRN's output stride: every level halves H up to 8x
-UNPARTITIONED_NETS = ("fcn", "fcn8s", "fcn8s_vgg16", "psp", "psp_net", "pspnet")
-UNPARTITIONED_ITEM = "Queue 1 item 13 (spatial partitioning of FCN8s and PSPNet)"
+TRUNK_STRIDE = 8  # DRN's and PSPNet's deepest level: every level halves H up to 8x
+FCN_STRIDE = 32  # FCN8s: five 2x2 pools halve H up to 32x
+FCN_NETS = ("fcn", "fcn8s", "fcn8s_vgg16")
+
+
+def trunk_stride(net: str) -> int:
+    """How far the trunk ``net`` halves the height: 32 for FCN8s (its five
+    pools), 8 for DRN and PSPNet."""
+    return FCN_STRIDE if net in FCN_NETS else TRUNK_STRIDE
 
 
 def check_spatial(net: str, img_h: int, space: int) -> None:
-    """Refuse a layout of ``space`` row blocks that the port cannot run:
-    FCN8s and PSPNet (``NotImplementedError``: VGG's crop offsets and PSP's
-    whole-map pyramid pooling need cross-shard work of their own), and a
-    height ``img_h`` that ``space`` does not divide at every trunk level
-    (``ValueError``, JAX's stated precondition)."""
+    """Refuse a height ``img_h`` that ``space`` row blocks do not divide at
+    every level of the trunk ``net`` (``ValueError``, JAX's stated
+    precondition): each level's blocks must start on an even row, for the
+    stride-2 convs and FCN8s's 2x2 pools to stay within a block."""
     if space <= 1:
         return
-    if net in UNPARTITIONED_NETS:
-        raise NotImplementedError(
-            f"--net {net} with --spatial_devices {space} is not ported to mcseg_tpu_torch "
-            f"(ROADMAP.md {UNPARTITIONED_ITEM}); only DRN trunks partition their rows")
-    if img_h % (TRUNK_STRIDE * space):
+    stride = trunk_stride(net)
+    if img_h % (stride * space):
+        levels = ", ".join(["H"] + [f"H/{2 ** i}" for i in range(1, stride.bit_length())])
         raise ValueError(
             f"--spatial_devices {space}: the train height {img_h} is not divisible by "
-            f"{space} at every trunk level (H, H/2, H/4, H/8 each split in {space} "
-            f"blocks of an even start row): H must be a multiple of {TRUNK_STRIDE * space}")
+            f"{space} at every level of --net {net} ({levels} each split in {space} "
+            f"blocks of an even start row): H must be a multiple of {stride * space} "
+            f"({stride}x{space})")
 
 
 def check_ranks(space: int, world: int) -> None:
@@ -98,6 +105,15 @@ def across_data(dp: Optional[DataParallel]) -> Optional[DataParallel]:
         return dp
     return DataParallel(rank=dp.data_rank, world=dp.data_blocks, device=dp.device,
                         group=dp.data_group)
+
+
+def across_space(dp: DataParallel) -> DataParallel:
+    """The ``space`` ranks of this rank's data block (its ``space_group``),
+    as a group of their own: ``mesh.all_sum`` over it sums a quantity over
+    the row blocks of the block's images, and its backward sums the
+    gradients back over them."""
+    return DataParallel(rank=dp.space_rank, world=dp.space, device=dp.device,
+                        group=dp.space_group)
 
 
 def shard_rows(dp: Optional[DataParallel], *planes: torch.Tensor) -> Tuple[torch.Tensor, ...]:

@@ -5,7 +5,8 @@ The port of the JAX package's ``tools/spatial_memory_table.py``, with its
 flags where they apply. There, XLA's ``compiled.memory_analysis()`` of the
 AOT-compiled step gives the bytes; here one iteration runs on the card and
 ``torch.cuda.max_memory_allocated`` reads its peak, so every number is the
-card's. The model is the JAX tool's: DRN (``--net``) RGB+HHA, 40 classes,
+card's. The model is the JAX tool's: ``--net`` (any trunk: DRN, PSPNet,
+or FCN8s with the height a multiple of 32 x the extent) RGB+HHA, 40 classes,
 bf16, SGD, ``--num_k`` generator updates, random weights from seed 0, raw
 planes (uint8 RGB, float32 depth, labels) drawn on the card.
 
@@ -38,6 +39,7 @@ import torch
 
 from mcseg_tpu_torch.core.config import DataConfig, ExperimentConfig, ModelConfig, TrainConfig
 from mcseg_tpu_torch.core.device import resolve_device
+from mcseg_tpu_torch.parallel.spatial import check_spatial
 
 GB = 1e9
 
@@ -124,6 +126,7 @@ def run_spatial(w: int, h: int, n_devices: int, net: str, num_k: int) -> Dict[st
     rows = {}
     s = 1
     while s <= n_devices:
+        check_spatial(net, h, s)
         with tempfile.TemporaryDirectory() as tmp:
             torch.multiprocessing.spawn(_spatial_rank,
                                         args=(s, _free_port(), w, h, net, num_k, tmp),

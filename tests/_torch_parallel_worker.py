@@ -16,12 +16,14 @@ the port only (no JAX), and run on two CPU threads each.
 
 import contextlib
 import json
+import math
 import os
 import socket
 import tempfile
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def free_port() -> int:
@@ -117,17 +119,30 @@ def logged(out_dir, keys):
         return np.array([[r[k] for k in keys] for r in map(json.loads, f)])
 
 
+def relative_errors(got, want):
+    """Each tensor of ``got`` against ``want``'s, by name: a float tensor's
+    largest difference relative to ``want``'s largest magnitude, an integer
+    tensor's 0 when equal; inf for a name either lacks, or a shape or dtype
+    that differs."""
+    errs = {k: math.inf for k in set(got) ^ set(want)}
+    for k, w in want.items():
+        g = got.get(k)
+        if g is None:
+            continue
+        if g.shape != w.shape or g.dtype != w.dtype:
+            errs[k] = math.inf
+        elif not w.is_floating_point():
+            errs[k] = 0.0 if torch.equal(g, w) else math.inf
+        else:
+            errs[k] = float((g - w).abs().max() / max(float(w.abs().max()), 1e-300))
+    return errs
+
+
 def assert_states_close(got, want, what, rel=1e-9):
     """Every float tensor of ``got`` within ``rel`` of ``want``'s, relative
-    to that tensor's largest magnitude; integer tensors equal."""
-    assert set(got) == set(want), (what, set(got) ^ set(want))
-    for k, w in want.items():
-        g = got[k]
-        assert g.shape == w.shape and g.dtype == w.dtype, (what, k, g.dtype, w.dtype)
-        if not w.is_floating_point():
-            assert torch.equal(g, w), (what, k)
-            continue
-        err = float((g - w).abs().max() / max(float(w.abs().max()), 1e-300))
+    to that tensor's largest magnitude; integer tensors equal; the same
+    names, shapes and dtypes."""
+    for k, err in sorted(relative_errors(got, want).items()):
         assert err <= rel, f"{what} {k}: relative error {err:.3g}"
 
 
@@ -245,19 +260,62 @@ def float64_commands():
         _train_main.args_to_config = plain
 
 
-def _cli(rank, world, port, argv, out_dir, float64=False):
-    """One rank of ``adapt_train.main(argv)`` joined by ``--coordinator``,
-    writing into ``out_dir/rank<r>`` (in float64 with ``float64``): its
-    final state's tensors and the files it wrote."""
+@contextlib.contextmanager
+def no_checkpoints():
+    """The training loops without checkpoint files (``last`` and every
+    epoch's): for runs whose states the test reads in memory, such as
+    FCN8s's 2 GB float64 state, that would fill the disk for nothing."""
+    from mcseg_tpu_torch.train import loops
+
+    plain = loops.save_checkpoint, loops._EpochSaver.save_epoch
+    loops.save_checkpoint = lambda *a, **kw: None
+    loops._EpochSaver.save_epoch = lambda *a, **kw: None
+    try:
+        yield
+    finally:
+        loops.save_checkpoint, loops._EpochSaver.save_epoch = plain
+
+
+def digest(tensors):
+    """A SHA-256 of ``tensors`` (name -> tensor), names, dtypes and bytes:
+    equal digests are bit-equal states."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(tensors):
+        t = tensors[k]
+        h.update(f"{k}:{t.dtype}:{tuple(t.shape)}".encode())
+        h.update(t.numpy().tobytes())  # C order, whatever the strides
+    return h.hexdigest()
+
+
+def _cli(rank, world, port, argv, out_dir, float64=False, spatial=1, lean=False):
+    """One rank of ``adapt_train.main(argv)`` joined by ``--coordinator``
+    (``--spatial_devices spatial``), writing into ``out_dir/rank<r>`` (in
+    float64 with ``float64``): its
+    final state's tensors, their ``digest``, its step and the files it
+    wrote. With ``lean`` (a large state) no checkpoint files are written
+    and no tensors sent: rank 0 then runs ``argv`` again in one process
+    (``one_step``) and sends its state's ``relative_errors`` against it."""
     from mcseg_tpu_torch.cli import adapt_train
 
     mine = os.path.join(out_dir, f"rank{rank}")
-    with float64_commands() if float64 else contextlib.nullcontext():
-        state = adapt_train.main(argv + ["--coordinator", f"127.0.0.1:{port}",
-                                         "--num_processes", str(world), "--process_id",
-                                         str(rank), "--out_dir", mine], device="cpu")
-    return {"tensors": state_tensors(state), "step": state.step,
-            "wrote": sorted(os.listdir(mine)) if os.path.isdir(mine) else None}
+    with float64_commands() if float64 else contextlib.nullcontext(), \
+            no_checkpoints() if lean else contextlib.nullcontext():
+        state = adapt_train.main(argv + ["--spatial_devices", str(spatial), "--coordinator",
+                                         f"127.0.0.1:{port}", "--num_processes", str(world),
+                                         "--process_id", str(rank), "--out_dir", mine],
+                                 device="cpu")
+        tensors = state_tensors(state)
+        out = {"tensors": None if lean else tensors, "digest": digest(tensors),
+               "step": state.step, "float64": all(t.dtype == torch.float64 for t in
+                                                   tensors.values() if t.is_floating_point()),
+               "wrote": sorted(os.listdir(mine)) if os.path.isdir(mine) else None}
+        del state
+        if lean and rank == 0:
+            one = adapt_train.main(argv + ["--out_dir", mine + "_one"], device="cpu")
+            out.update(one_step=one.step, errors=relative_errors(tensors, state_tensors(one)))
+    return out
 
 
 def _grads_of(fn, x, module=None, probe=None):
@@ -270,18 +328,54 @@ def _grads_of(fn, x, module=None, probe=None):
     return {"y": y.detach().cpu(), "dx": x.grad.cpu(), "grads": grads}
 
 
-def halo_task(dp, space, convs, upsample):
+def row_split_module(kind, params, **kw):
+    """A float64 module of the row-split trunks in train mode, its
+    parameters from the numpy dict ``params`` (None: torch's
+    initialization): ``"ppm"`` (PSPNet's
+    ``PyramidPooling``, ``kw`` its ``cin`` and ``reduce_ch``) or ``"fcn"``
+    (``FCN8sClassifier``, ``kw`` its ``n_class`` and ``upsample``)."""
+    from mcseg_tpu_torch.models.fcn_vgg import FCN8sClassifier
+    from mcseg_tpu_torch.models.psp_net import PyramidPooling
+
+    if kind == "ppm":
+        m = PyramidPooling(kw["cin"], reduce_ch=kw["reduce_ch"])
+    else:
+        m = FCN8sClassifier(0, kw["n_class"], kw["upsample"])
+    m = m.double().train()
+    if params is not None:
+        m.load_state_dict({k: torch.from_numpy(v) for k, v in params.items()})
+    return m
+
+
+def _module_grads(m, inputs, probe):
+    """(output, input gradients, parameter gradients, BN running
+    statistics) of ``m(*inputs)`` probed by ``probe``, on the CPU."""
+    leaves = [x.clone().requires_grad_(True) for x in inputs]
+    y = m(leaves[0] if len(leaves) == 1 else tuple(leaves))
+    (y * probe).sum().backward()
+    return {"y": y.detach().cpu(), "dx": [x.grad.cpu() for x in leaves],
+            "grads": {k: p.grad.cpu() for k, p in m.named_parameters()},
+            "buffers": {k: b.cpu().clone() for k, b in m.named_buffers()
+                        if b.is_floating_point()}}
+
+
+def halo_task(dp, space, convs, upsample, stem_pool=None, ceil_pool=None, modules=()):
     """The row-split ops on this rank's row block of global float64 inputs
     (the same on every rank, from numpy): ``convs`` is a list of (x, probe,
     weight, stride, dilation) for ``models.drn.Conv2d`` under the layout,
     ``upsample`` (x, probe, factor) for both modes of
-    ``ops.upsample.upsample_logits``; each case's output, input gradient and
-    weight gradient (this rank's share)."""
+    ``ops.upsample.upsample_logits``, ``stem_pool`` and ``ceil_pool`` an
+    (x, probe) for PSPNet's stem pool and FCN8s's 2x2 ceil-mode pool, and
+    ``modules`` a list of (kind, params, kw, inputs, probe, space) for
+    ``row_split_module`` in a layout of ``space`` row blocks; each case's
+    output, input gradient and parameter gradients (this rank's share)."""
     from mcseg_tpu_torch.models.drn import Conv2d, set_data_parallel
+    from mcseg_tpu_torch.models.psp_net import stem_pool as psp_stem_pool
     from mcseg_tpu_torch.ops.upsample import upsample_logits
     from mcseg_tpu_torch.parallel.spatial import spatial_layout
 
-    dp = spatial_layout(dp, space)
+    layouts = {s: spatial_layout(dp, s) for s in sorted({space} | {m[-1] for m in modules})}
+    dp = layouts[space]
     out = {"convs": [], "upsample": {}}
     for x, probe, weight, stride, dilation in convs:
         k = weight.shape[-1]
@@ -297,6 +391,17 @@ def halo_task(dp, space, convs, upsample):
         out["upsample"][mode] = _grads_of(
             lambda t: upsample_logits(t, factor, mode, dp), block_of(dp, x, 2).to(dp.device),
             probe=block_of(dp, probe, 2).to(dp.device))
+    pools = {"stem_pool": (stem_pool, lambda t: psp_stem_pool(t, dp)),
+             "ceil_pool": (ceil_pool, lambda t: F.max_pool2d(t, 2, 2, ceil_mode=True))}
+    for name, (case, fn) in pools.items():
+        if case is not None:
+            out[name] = _grads_of(fn, block_of(dp, case[0], 2), probe=block_of(dp, case[1], 2))
+    out["modules"] = []
+    for kind, params, kw, inputs, probe, s in modules:
+        m = row_split_module(kind, params, **kw)
+        set_data_parallel(m, layouts[s])
+        out["modules"].append(_module_grads(m, [block_of(layouts[s], x, 2) for x in inputs],
+                                            block_of(layouts[s], probe, 2)))
     return out
 
 

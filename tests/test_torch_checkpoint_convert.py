@@ -53,6 +53,7 @@ from mcseg_tpu_torch.train.state import create_train_state
 from mcseg_tpu_torch.utils.checkpoint import (
     load_checkpoint, load_jax_checkpoint, load_params, save_jax_checkpoint)
 from mcseg_tpu_torch.utils.jax_weights import opt_state_to_jax, params_to_jax
+from _torch_threads import torch_threads  # noqa: F401  (autouse: the worker's cores)
 
 B, H, W, NC = 2, 24, 16, 5
 REL = 1e-9

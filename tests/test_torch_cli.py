@@ -3,9 +3,9 @@ JAX package's, and end to end on the CPU.
 
 Parsing: the same reference command line gives the same ExperimentConfig
 dict in both packages, the testing parser the same namespace, and a bad
-choice is refused by both. A layout the port has not ported
-(``--spatial_devices`` with PSPNet) raises ``NotImplementedError``; the
-parallelism flags run a gloo group of one. ``--resume`` checks
+choice is refused by both. A ``--spatial_devices`` layout whose row
+blocks FCN8s's pools cannot split raises ``ValueError``; the parallelism
+flags run a gloo group of one. ``--resume`` checks
 the checkpoint's structure first, with JAX's message.
 
 End to end: drn_d_14, 40 classes, float32, batch 2 of ``synthetic`` ->
@@ -45,6 +45,7 @@ from mcseg_tpu_torch.core.config import ExperimentConfig
 from mcseg_tpu_torch.eval.tester import evaluate
 from mcseg_tpu_torch.train import loops
 from mcseg_tpu_torch.utils.checkpoint import load_checkpoint, load_params
+from _torch_threads import torch_threads  # noqa: F401  (autouse: the worker's cores)
 
 COMMAND_LINES = {
     "adapt_suncg_nyu_rgbhha": (True, "suncg nyu --input_ch 6 --num_k 4"),
@@ -91,12 +92,14 @@ def test_testing_parser_and_bad_choices_match_jax():
 
 
 @pytest.mark.parametrize("main,argv", [
-    (source_train.main, "synthetic --net psp --spatial_devices 2"),
+    (source_train.main, "synthetic --net fcn8s_vgg16 --train_img_shape 640 480 "
+                        "--spatial_devices 2"),
 ], ids=lambda v: v.split()[-1] if isinstance(v, str) else None)
 def test_unported_output_flags_raise(main, argv, tmp_path):
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md Queue 1 item 13 \(spatial partitioning of FCN8s "
-                             r"and PSPNet\)"):
+    """Every trunk partitions its rows; FCN8s's five pools need the train
+    height a multiple of 32 x the row blocks, which 480 rows in 2 are not."""
+    with pytest.raises(ValueError, match=r"train height 480 .* --net fcn8s_vgg16 .* "
+                                         r"multiple of 64 \(32x2\)"):
         main(argv.split() + ["--out_dir", str(tmp_path / "run")], device="cpu")
     assert not os.path.exists(tmp_path / "run")  # refused before anything was written
 

@@ -30,6 +30,7 @@ from mcseg_tpu_torch.core.config import ExperimentConfig
 from mcseg_tpu_torch.train.state import create_train_state
 from mcseg_tpu_torch.utils.checkpoint import save_checkpoint
 from mcseg_tpu_torch.utils.jax_weights import params_from_jax
+from _torch_threads import torch_threads  # noqa: F401  (autouse: the worker's cores)
 
 
 def test_test_commands_match_the_jax_commands(tmp_path):

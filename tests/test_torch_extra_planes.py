@@ -29,6 +29,7 @@ from mcseg_tpu.ops.preprocess import make_eval_preprocess as jax_make_eval_prepr
 from mcseg_tpu_torch.core.config import DataConfig
 from mcseg_tpu_torch.ops.preprocess import _extra_channels, make_eval_preprocess
 from test_torch_train_preprocess import GEOMETRIES, _raw, _run_both
+from _torch_threads import torch_threads  # noqa: F401  (autouse: the worker's cores)
 
 ATOL = 1e-5
 BF16_ATOL = 0.08

@@ -35,6 +35,7 @@ from mcseg_tpu_torch.models.fusion import LateFusionClassifier, LateFusionGenera
 from mcseg_tpu_torch.train.mcd import make_mcd_step
 from mcseg_tpu_torch.train.state import create_train_state
 from mcseg_tpu_torch.utils.jax_weights import params_from_jax, params_to_jax
+from _torch_threads import torch_threads  # noqa: F401  (autouse: the worker's cores)
 
 B, H, W, NC = 2, 24, 16, 5
 REL = 1e-9

@@ -18,6 +18,7 @@ from mcseg_tpu.core.config import DataConfig as JaxDataConfig
 from mcseg_tpu.data.datasets import SyntheticShiftedDataset as JaxShifted
 from mcseg_tpu.ops import hha as jhha
 from mcseg_tpu_torch.ops import hha as thha
+from _torch_threads import torch_threads  # noqa: F401  (autouse: the worker's cores)
 
 HHA_ATOL = 0.01
 

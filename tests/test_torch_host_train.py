@@ -64,6 +64,7 @@ from mcseg_tpu_torch.train.state import create_train_state
 from mcseg_tpu_torch.utils.checkpoint import AsyncCheckpointer, save_checkpoint
 from mcseg_tpu_torch.utils.jax_weights import params_from_jax, params_to_jax
 from tests.test_corpus_layouts import make_cityscapes
+from _torch_threads import torch_threads  # noqa: F401  (autouse: the worker's cores)
 
 
 def _cfg(out_dir, epochs=1, **data_kw):

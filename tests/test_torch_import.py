@@ -12,6 +12,7 @@ from mcseg_tpu.utils.torch_import import (
     import_torch_state_dict,
     torch_conv_to_hwio,
 )
+from _torch_threads import torch_threads  # noqa: F401  (autouse: the worker's cores)
 
 
 def test_conv_layout_transpose():

@@ -29,6 +29,7 @@ from mcseg_tpu_torch.utils.jax_weights import params_from_jax, params_to_jax
 from mcseg_tpu_torch.utils.torch_import import import_torch_state_dict
 from tests.test_golden_drn import TorchDRND22
 from tests.test_import_cli import _TorchHead
+from _torch_threads import torch_threads  # noqa: F401  (autouse: the worker's cores)
 
 NC = 7
 

@@ -18,6 +18,7 @@ from mcseg_tpu.losses.discrepancy import get_prob_distance_criterion as jax_disc
 from mcseg_tpu.losses.seg import cross_entropy_2d as jax_ce
 from mcseg_tpu_torch.losses.discrepancy import get_prob_distance_criterion
 from mcseg_tpu_torch.losses.seg import at_least_f32, cross_entropy_2d
+from _torch_threads import torch_threads  # noqa: F401  (autouse: the worker's cores)
 
 RTOL = 1e-12
 

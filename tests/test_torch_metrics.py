@@ -17,6 +17,7 @@ from mcseg_tpu.eval import metrics as jax_metrics
 from mcseg_tpu_torch.core.config import DataConfig, ExperimentConfig
 from mcseg_tpu_torch.data import datasets, labels
 from mcseg_tpu_torch.eval import metrics
+from _torch_threads import torch_threads  # noqa: F401  (autouse: the worker's cores)
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "ckpt_v1.config.json")
 

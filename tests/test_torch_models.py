@@ -26,6 +26,7 @@ from mcseg_tpu_torch.models.factory import get_models, init_models
 from mcseg_tpu_torch.models.heads import PixelClassifier
 from mcseg_tpu_torch.ops.upsample import upsample_logits
 from mcseg_tpu_torch.utils.jax_weights import params_from_jax
+from _torch_threads import torch_threads  # noqa: F401  (autouse: the worker's cores)
 
 
 def _nchw(x):

@@ -17,6 +17,7 @@ import torch
 from flax import serialization
 
 from mcseg_tpu_torch.utils import msgpack_compat
+from _torch_threads import torch_threads  # noqa: F401  (autouse: the worker's cores)
 
 FIXDIR = os.path.join(os.path.dirname(__file__), "fixtures")
 

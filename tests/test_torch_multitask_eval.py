@@ -36,6 +36,7 @@ from mcseg_tpu_torch.eval.serving import make_serve_fn
 from mcseg_tpu_torch.eval.tester import boundary_match_sums, evaluate
 from mcseg_tpu_torch.models.factory import init_aux_heads
 from mcseg_tpu_torch.utils.jax_weights import params_from_jax, params_to_jax
+from _torch_threads import torch_threads  # noqa: F401  (autouse: the worker's cores)
 
 
 def test_depth_metric_sums_match_jax_fp64():

@@ -15,6 +15,7 @@ from PIL import Image
 
 from mcseg_tpu import native as jax_native
 from mcseg_tpu_torch import native
+from _torch_threads import torch_threads  # noqa: F401  (autouse: the worker's cores)
 
 
 @pytest.fixture(scope="module")

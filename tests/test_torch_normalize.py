@@ -19,6 +19,7 @@ from mcseg_tpu.ops.pallas.normalize import (
 )
 from mcseg_tpu.ops.preprocess import _normalize_stack as jax_normalize_stack
 from mcseg_tpu_torch.ops.normalize import fused_normalize_stack
+from _torch_threads import torch_threads  # noqa: F401  (autouse: the worker's cores)
 
 E_CH = {3: 0, 6: 3, 4: 1, 1: 1}
 

@@ -20,6 +20,7 @@ from mcseg_tpu.train.optim import get_optimizer as jax_get_optimizer
 from mcseg_tpu.train.optim import make_lr_schedule as jax_make_lr_schedule
 from mcseg_tpu.train.optim import set_lr as jax_set_lr
 from mcseg_tpu_torch.train.optim import get_optimizer, make_lr_schedule, set_lr
+from _torch_threads import torch_threads  # noqa: F401  (autouse: the worker's cores)
 
 
 @pytest.mark.parametrize("kind", ["poly", "step", "constant"])

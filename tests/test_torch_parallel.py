@@ -29,6 +29,7 @@ from mcseg_tpu_torch.ops.preprocess import pre_crop_canvas
 from mcseg_tpu_torch.parallel import mesh, multihost
 from mcseg_tpu_torch.parallel.mesh import DataParallel, local_batch_rows
 from mcseg_tpu_torch.train import loops
+from _torch_threads import torch_threads  # noqa: F401  (autouse: the worker's cores)
 
 CPU = torch.device("cpu")
 

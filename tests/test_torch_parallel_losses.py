@@ -32,6 +32,7 @@ from mcseg_tpu.losses.discrepancy import get_prob_distance_criterion as jax_disc
 from mcseg_tpu.losses.seg import balanced_bce_2d as jax_bce
 from mcseg_tpu.losses.seg import berhu_loss as jax_berhu
 from mcseg_tpu.losses.seg import cross_entropy_2d as jax_ce
+from _torch_threads import torch_threads  # noqa: F401  (autouse: the worker's cores)
 
 B, C, H, W, NC = 4, 8, 6, 5, 5
 WORLD = 2

@@ -35,6 +35,7 @@ from mcseg_tpu_torch.core.config import DataConfig, ExperimentConfig, ModelConfi
 from mcseg_tpu_torch.train import loops
 from mcseg_tpu_torch.train.state import create_train_state
 from mcseg_tpu_torch.utils.checkpoint import load_checkpoint, save_jax_checkpoint
+from _torch_threads import torch_threads  # noqa: F401  (autouse: the worker's cores)
 
 B, ITERATIONS, SEED = 4, 2, 5
 REL = 1e-9

@@ -45,6 +45,7 @@ from mcseg_tpu_torch.train import loops
 from mcseg_tpu_torch.train.state import create_train_state
 from mcseg_tpu_torch.utils.checkpoint import load_checkpoint, save_jax_checkpoint
 from mcseg_tpu_torch.utils.jax_weights import params_to_jax
+from _torch_threads import torch_threads  # noqa: F401  (autouse: the worker's cores)
 
 B, ITERATIONS, SEED = 4, 3, 3
 REL = 1e-9

@@ -25,6 +25,7 @@ from mcseg_tpu_torch.ops.preprocess import (
     resize_bilinear,
 )
 from mcseg_tpu_torch.data.labels import nyu40_raw_to_train_table
+from _torch_threads import torch_threads  # noqa: F401  (autouse: the worker's cores)
 
 
 def _raw_batch(decode_wh, n=2):

@@ -34,6 +34,7 @@ from mcseg_tpu_torch.data.device_corpus import corpus_stream
 from mcseg_tpu_torch.data.disk_cache import DiskDecodeCache
 from mcseg_tpu_torch.data.pipeline import batch_iterator, device_prefetch, wire_items
 from tests.test_corpus_layouts import make_cityscapes, make_gta5, make_nyu_like, make_synthia
+from _torch_threads import torch_threads  # noqa: F401  (autouse: the worker's cores)
 
 
 @pytest.fixture(scope="module")

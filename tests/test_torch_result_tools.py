@@ -32,6 +32,7 @@ from mcseg_tpu_torch.tools import make_result_sheet, parity_eval, summarize_run
 from mcseg_tpu_torch.utils.checkpoint import load_checkpoint, save_jax_checkpoint
 from tests.test_golden_drn import TorchDRND22
 from tests.test_import_cli import _TorchHead
+from _torch_threads import torch_threads  # noqa: F401  (autouse: the worker's cores)
 
 N, H, W = 3, 480, 640
 

@@ -42,6 +42,7 @@ from mcseg_tpu_torch.data.labels import get_label_spec
 from mcseg_tpu_torch.eval.tester import evaluate
 from mcseg_tpu_torch.utils.jax_weights import params_from_jax
 from mcseg_tpu_torch.utils.logging import JsonlLogger
+from _torch_threads import torch_threads  # noqa: F401  (autouse: the worker's cores)
 
 PROB_ATOL = 1e-3
 

@@ -36,6 +36,7 @@ from mcseg_tpu_torch import native
 from mcseg_tpu_torch.core.config import ExperimentConfig
 from mcseg_tpu_torch.eval.serving import export_serving, load_serving
 from mcseg_tpu_torch.utils.jax_weights import params_from_jax
+from _torch_threads import torch_threads  # noqa: F401  (autouse: the worker's cores)
 
 
 def _artifacts(root, input_ch, multitask=False):

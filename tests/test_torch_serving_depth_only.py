@@ -27,6 +27,7 @@ from mcseg_tpu_torch.core.config import ExperimentConfig
 from mcseg_tpu_torch.eval.serving import make_serve_fn
 from mcseg_tpu_torch.eval.tester import make_infer_fn
 from mcseg_tpu_torch.utils.jax_weights import params_from_jax
+from _torch_threads import torch_threads  # noqa: F401  (autouse: the worker's cores)
 
 LOGITS_ATOL = 1e-4
 

@@ -45,6 +45,7 @@ from mcseg_tpu_torch.tools import export_serving as export_tool
 from mcseg_tpu_torch.train.state import create_train_state
 from mcseg_tpu_torch.utils.checkpoint import save_checkpoint
 from mcseg_tpu_torch.utils.jax_weights import params_from_jax
+from _torch_threads import torch_threads  # noqa: F401  (autouse: the worker's cores)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROBS_ATOL = 1e-5
@@ -194,8 +195,8 @@ def test_depth_input_with_probs_matches_jax_and_loads_in_a_fresh_process(tmp_pat
     assert torch.equal(live[0], got[0]) and torch.equal(live[1], got[1])
 
     np.savez(tmp_path / "request.npz", **request)
-    script = (
-        "import sys, numpy as np\n"
+    script = (  # the test process's CPU threads, so that both reduce alike
+        f"import sys, numpy as np, torch; torch.set_num_threads({torch.get_num_threads()})\n"
         "from mcseg_tpu_torch.eval.serving import load_serving\n"
         f"call = load_serving({str(tmp_path / 'port.pt2')!r})\n"
         f"pred, probs = call(dict(np.load({str(tmp_path / 'request.npz')!r})))\n"

@@ -34,6 +34,7 @@ from mcseg_tpu_torch.core.config import ModelConfig, TrainConfig
 from mcseg_tpu_torch.train.source import make_source_step
 from mcseg_tpu_torch.train.state import create_train_state
 from mcseg_tpu_torch.utils.jax_weights import params_from_jax, params_to_jax
+from _torch_threads import torch_threads  # noqa: F401  (autouse: the worker's cores)
 
 B, H, W, NC = 2, 24, 16, 5
 REL = 1e-9

@@ -11,8 +11,23 @@ the data blocks); float64 through ``float64_commands`` (``--dtype`` offers
 bfloat16 and float32 only). The multitask trainer (``train_multitask``,
 MCD with the depth and boundary heads, ``resize`` upsampling) on the same
 shapes for 1 iteration: the boundary targets come from whole labels, so
-the rows beside the blocks' boundary keep theirs. The 1-process runs use
-the ranks' two CPU threads.
+the rows beside the blocks' boundary keep theirs. The other two trunks
+through ``adapt_train.main --spatial_devices 2``: ``fcn8s_vgg16`` at 32x64
+(W x H: one row per block at /32, so ``conv6``'s halo of 3 spans the
+neighbour's block and the image edge; the ranks draw their share of one
+process's dropout masks) at global batch 2, and ``psp`` at 48x32 (h=4,
+w=6 at /8: pyramid bins 1 and 2 average exactly, 3 and 6 resize first, 3
+shrinking its rows and 6 stretching them) at global batch 4, RGB, ``num_k``
+1, 1 iteration, without checkpoint files (``no_checkpoints``: FCN8s's
+float64 state is 2 GB), each held to one process by rank 0, which runs
+the command again alone after the job and sends only the differences;
+rank 1 sends a digest of its state. At batch
+2 the 1-bin branch's BN normalizes two nearly equal values per channel and
+its gradient is cancellation noise (``tests/test_torch_vgg_psp_train.py``):
+there one process as a group of one, whose BN sums in another order,
+already differs from one process by 1.5e-8, and 2 ranks by 4.9e-9; at
+batch 4 both differ by 5.5e-12. The 1-process runs use the ranks' two CPU
+threads.
 
 Bound: parameters, BN statistics, both optimizers' momentum and the step
 within 1e-9 of the 1-process run, relative to each tensor's largest
@@ -30,6 +45,7 @@ from _torch_parallel_worker import Ranks, assert_states_close, float64_commands,
 from mcseg_tpu_torch.cli import adapt_train
 from mcseg_tpu_torch.core.config import DataConfig, ExperimentConfig, ModelConfig, TrainConfig
 from mcseg_tpu_torch.train.loops import train_multitask
+from _torch_threads import torch_threads  # noqa: F401  (autouse: the worker's cores)
 
 REL = 1e-9
 HEADS = dict(depth_weight=0.5, boundary_weight=1.0)
@@ -39,6 +55,14 @@ CLI_ARGV = ("synthetic synthetic_shifted --net drn_d_22 --input_ch 6 --batch_siz
             "--seed 2").split()
 ADAPT_LOSSES = ("loss_source", "loss_b", "loss_dis", "lr")
 MT_LOSSES = ("loss_source", "loss_seg", "loss_depth", "loss_boundary", "loss_b", "loss_dis")
+TRUNKS = {"fcn8s_vgg16": (32, 64, 2), "psp": (48, 32, 4)}  # --train_img_shape W H, batch
+
+
+def _trunk_argv(net):
+    w, h, b = TRUNKS[net]
+    return (f"synthetic synthetic_shifted --net {net} --batch_size {b} --train_img_shape {w} {h} "
+            f"--max_samples {b} --epochs 1 --num_k 1 --lr 0.05 --lr_schedule constant "
+            f"--log_every 1 --num_workers 0 --seed 4").split()
 
 
 def _mt_config(out_dir):
@@ -56,11 +80,11 @@ def _mt_config(out_dir):
 def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("spatial_cli")
     ranks = Ranks([  # in the background while the 1-process runs train
-        ("cli", dict(argv=CLI_ARGV + ["--spatial_devices", "2"], out_dir=str(tmp / "cli"),
-                     float64=True)),
+        ("cli", dict(argv=CLI_ARGV, out_dir=str(tmp / "cli"), float64=True, spatial=2)),
         ("train", dict(cfg_dict=_mt_config(tmp / "unused").to_dict(), out_dir=str(tmp / "mt"),
                        kind="multitask", iterations=1, space=2, **HEADS)),
-    ])
+    ] + [("cli", dict(argv=_trunk_argv(net), out_dir=str(tmp / net), float64=True, spatial=2,
+                      lean=True)) for net in TRUNKS])
     threads = torch.get_num_threads()
     torch.set_num_threads(2)
     try:
@@ -84,7 +108,7 @@ def test_adapt_train_command_with_spatial_devices_equals_one_process(runs):
     tmp, one = runs["tmp"], runs["one"]
     assert one.g.conv0.weight.dtype == torch.float64 and one.step == 2
     want = state_tensors(one)
-    (cli0, _), (cli1, _) = runs["ranks"]
+    (cli0, *_), (cli1, *_) = runs["ranks"]
     for rank, cli in enumerate((cli0, cli1)):
         assert cli["step"] == 2
         assert_states_close(cli["tensors"], want, f"rank {rank} vs 1 process")
@@ -100,9 +124,22 @@ def test_adapt_train_command_with_spatial_devices_equals_one_process(runs):
 
 def test_multitask_trainer_on_row_blocks_equals_one_process(runs):
     want = state_tensors(runs["mt_one"])
-    for rank, (_, mt) in enumerate(runs["ranks"]):
+    for rank, (_, mt, *_) in enumerate(runs["ranks"]):
         assert mt["step"] == 1
         assert_states_close(mt["tensors"], want, f"multitask rank {rank} vs 1 process")
     got = _log(runs["tmp"] / "mt" / "rank0", MT_LOSSES)
     assert got.shape == (1, len(MT_LOSSES))
     np.testing.assert_allclose(got, _log(runs["tmp"] / "mt_one", MT_LOSSES), rtol=REL, atol=0)
+
+
+@pytest.mark.parametrize("net", list(TRUNKS))
+def test_fcn8s_and_psp_on_row_blocks_equal_one_process(runs, net):
+    got = [r[2 + list(TRUNKS).index(net)] for r in runs["ranks"]]
+    assert [g["step"] for g in got] == [1, 1] and got[0]["one_step"] == 1
+    errors = got[0]["errors"]
+    assert got[0]["float64"] and ("G.ppm.reduce_bn0.running_var" if net == "psp"
+                                  else "G.conv6.weight") in errors
+    for k, err in sorted(errors.items()):
+        assert err <= REL, f"{net} rank 0 vs 1 process {k}: relative error {err:.3g}"
+    assert got[0]["digest"] == got[1]["digest"]  # the replicas are bit-equal
+    assert got[1]["wrote"] is None and "args.json" in got[0]["wrote"]

@@ -34,6 +34,7 @@ from mcseg_tpu.parallel.mesh import batch_sharding, constrain_spatial, make_mesh
 from mcseg_tpu.train.mcd import make_mcd_step as jax_make_mcd_step
 from mcseg_tpu.train.state import create_train_state as jax_create_train_state
 from mcseg_tpu_torch.utils.jax_weights import params_from_jax, params_to_jax
+from _torch_threads import torch_threads  # noqa: F401  (autouse: the worker's cores)
 
 SHAPE = (32, 16)
 NCLASS = 4

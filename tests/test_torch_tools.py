@@ -28,6 +28,7 @@ from mcseg_tpu.tools import prepare_nyu as jax_prepare_nyu
 from mcseg_tpu_torch.losses.seg import boundary_targets_from_labels
 from mcseg_tpu_torch.ops.hha import depth_to_hha_batch
 from mcseg_tpu_torch.tools import organize_suncg, prepare_boundary, prepare_hha, prepare_nyu
+from _torch_threads import torch_threads  # noqa: F401  (autouse: the worker's cores)
 
 
 def _tree(root):

@@ -24,6 +24,7 @@ from mcseg_tpu_torch.data.pipeline import _index_batches, batch_iterator
 from mcseg_tpu_torch.eval.tester import evaluate
 from mcseg_tpu_torch.train.loops import check_finite, train_adapt
 from mcseg_tpu_torch.utils.checkpoint import load_checkpoint, load_params
+from _torch_threads import torch_threads  # noqa: F401  (autouse: the worker's cores)
 
 
 def _cfg(out_dir, epochs=3, **train_kw):

@@ -39,6 +39,7 @@ from mcseg_tpu_torch.core.config import DataConfig
 from mcseg_tpu_torch.data.datasets import get_dataset, stack_samples
 from mcseg_tpu_torch.ops.preprocess import (
     draw_augment, make_train_preprocess, pre_crop_canvas)
+from _torch_threads import torch_threads  # noqa: F401  (autouse: the worker's cores)
 
 RGB_ATOL = 1e-5
 HHA_ATOL = 2e-3

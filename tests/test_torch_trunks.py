@@ -26,6 +26,7 @@ from mcseg_tpu.models.factory import get_models as jax_get_models
 from mcseg_tpu_torch.core.config import ModelConfig
 from mcseg_tpu_torch.models.factory import get_models
 from mcseg_tpu_torch.utils.jax_weights import params_from_jax, params_to_jax
+from _torch_threads import torch_threads  # noqa: F401  (autouse: the worker's cores)
 
 REL = 1e-9
 

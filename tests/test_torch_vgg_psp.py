@@ -50,6 +50,7 @@ from mcseg_tpu_torch.models.fcn_vgg import FCN8sClassifier, VGG16FeatureGenerato
 from mcseg_tpu_torch.models.heads import PixelClassifier
 from mcseg_tpu_torch.models.psp_net import PSPFeatureGenerator
 from mcseg_tpu_torch.utils.jax_weights import params_from_jax, params_to_jax
+from _torch_threads import torch_threads  # noqa: F401  (autouse: the worker's cores)
 
 REL = 1e-9
 NC = 5

@@ -59,6 +59,7 @@ from mcseg_tpu_torch.train.optim import get_optimizer
 from mcseg_tpu_torch.train.source import make_source_step
 from mcseg_tpu_torch.train.state import MCDTrainState, create_train_state
 from mcseg_tpu_torch.utils.jax_weights import params_from_jax, params_to_jax
+from _torch_threads import torch_threads  # noqa: F401  (autouse: the worker's cores)
 
 NC, REL = 5, 1e-9
 TCFG = dict(opt="sgd", lr=0.05, momentum=0.9, weight_decay=1e-3, num_k=2, d_loss="diff",
