@@ -46,12 +46,18 @@ ranks beside one process (peak memory per rank),
 1x2 layouts held to one process; ``--net psp`` at 640x480 and ``--net
 fcn8s_vgg16`` at 1024x512 as two ranks); then the profiling tools (phase
 ``profile``): ``tools.profile_step`` at its defaults (batch 24) with its
-device time by category, and ``tools.profile_input_pipeline``; and it
-checks that each path launched the kernels. Every phase prints one JSON line
-and any failure raises (exit code != 0), a ptxas spill included. Kernel
-times are L2-cold, as the serving path finds its inputs: each timing
-rotates over input sets that together move 3x the 50 MB L2, and a reading
-above 1.05x of the card's bound raises as a timing fault. The last lines
+device time by category, and ``tools.profile_input_pipeline``; then the
+learning evidence (phase ``learning``): the JAX package's adaptation A/B
+(source-only, the one-classifier ablation and MCD on ``synthetic`` ->
+``synthetic_shifted``, 400 iterations each, gated by its guard's
+assertions), its dtype A/B and the main model's 256-iteration quality run
+through ``adapt_train`` and ``adapt_test``, each beside the JAX package's
+TPU v5e record; and it checks that each path launched the kernels. Every
+phase prints one JSON line and any failure raises (exit code != 0), a
+ptxas spill included. Kernel times are L2-cold, as the serving path finds
+its inputs: each timing rotates over input sets that together move 3x the
+50 MB L2, and a reading above 1.05x of the card's bound raises as a timing
+fault. The last lines
 are the kernel table, the card's name and power limit as nvidia-smi reports
 them, and ``{"ok": true, "device": {...}}``.
 
@@ -2408,7 +2414,8 @@ def _timed_main(argv):
     return {"iterations": state.step, "launches": fused_normalize_stack.launches,
             "sync_bn_native_calls": sync_bn.sync_batch_norm_native.calls,
             "ms_per_iteration_all": times,
-            "ms_per_iteration": statistics.median(times[PARALLEL_WARMUP:]),
+            "ms_per_iteration": (statistics.median(times[PARALLEL_WARMUP:])
+                                 if len(times) > PARALLEL_WARMUP else None),
             "profile": profiled}
 
 
@@ -2782,8 +2789,10 @@ SPATIAL_TRUNK_LAYOUTS = (
     {"space": 2, "hw": (32, 48), "batch": 4, "net": "psp", "input_ch": 3, "num_k": 1,
      "iterations": 1})
 # (e): the train cell's command with the other two trunks (--net, W, H); FCN8s
-# at 1024x512 because 480 rows do not split in 2 at its /32 level
+# at 1024x512 because 480 rows do not split in 2 at its /32 level; 2
+# iterations each, which leaves the script's time to phase learning
 SPATIAL_FULL_TRUNKS = (("psp", W, H), ("fcn8s_vgg16", 1024, 512))
+SPATIAL_FULL_TRUNK_ITERATIONS = 2
 SPATIAL_FIT_BATCHES = "8,16,24"  # (c) --mode fit at 640x480, well inside 80 GB
 # (c) beside the card's table: the JAX package's on a TPU v5e (15.75 GB HBM),
 # XLA's compile-time numbers, docs/ARCHITECTURE.md:381-399 (not the port's)
@@ -2964,9 +2973,9 @@ def _spatial_equality(layout, out, ranks, prefix, single, single_launches, failu
     return row
 
 
-def _full_width_row(name, argv_hw, two, one, losses, failures, what):
-    """(b)/(e)'s report of one command: 2 ranks sharing the card against 1
-    process; the failures it adds."""
+def _full_width_row(name, argv_hw, two, one, losses, failures, what, iterations):
+    """(b)/(e)'s report of one command of ``iterations`` iterations: 2 ranks
+    sharing the card against 1 process; the failures it adds."""
     net, w, h = argv_hw
     row = {"net": net, "input_ch": 6, "hw": [h, w], "batch": B, "dtype": "bfloat16",
            "num_k": 4, "iterations": [r["iterations"] for r in two],
@@ -2981,13 +2990,13 @@ def _full_width_row(name, argv_hw, two, one, losses, failures, what):
                "iterations": one["iterations"], "launches": one["launches"],
                "unchanged": one["unchanged"][:5]}}
     for r in two + [one]:
-        if r["iterations"] != SPATIAL_ITERATIONS or r["launches"] != 2 * SPATIAL_ITERATIONS:
+        if r["iterations"] != iterations or r["launches"] != 2 * iterations:
             failures.append(f"({what}) {name}: {r['iterations']} iterations, "
                             f"{r['launches']} launches")
         if r["unchanged"]:
             failures.append(f"({what}) {name}: training left tensors unchanged: "
                             f"{r['unchanged'][:5]}")
-    if len(losses) != SPATIAL_ITERATIONS:
+    if len(losses) != iterations:
         failures.append(f"({what}) {name}: {len(losses)} logged iterations")
     return row
 
@@ -3013,10 +3022,10 @@ def phase_spatial(smi_line):
     layout, RGB, ``num_k`` 1, 1 iteration (``SPATIAL_TRUNK_LAYOUTS``):
     fcn8s_vgg16 at 64x32 and psp at 32x48 (H x W), within 1e-9; (e) (b)'s
     command with ``--net psp`` at 640x480 and ``--net fcn8s_vgg16`` at
-    1024x512, with (b)'s gates. (a), (c), (d) and (b)'s and (e)'s one
-    process run together (memory and float64 results do not depend on
-    contention), then the two ranks of (b) and (e) alone. Files under
-    build/spatial_*, removed at the end."""
+    1024x512 for 2 iterations, with (b)'s gates. (a), (c), (d) and (b)'s
+    and (e)'s one process run together (memory and float64 results do not
+    depend on contention), then the two ranks of (b) and (e) alone. Files
+    under build/spatial_*, removed at the end."""
     import tempfile
 
     import torch
@@ -3056,9 +3065,11 @@ def phase_spatial(smi_line):
         # (their times would be the contended ones: phase train times the
         # DRN iteration alone)
         commands = [("drn_d_38", W, H)] + list(SPATIAL_FULL_TRUNKS)
+        iterations = [SPATIAL_ITERATIONS] + [SPATIAL_FULL_TRUNK_ITERATIONS] * len(
+            SPATIAL_FULL_TRUNKS)
         argvs = [["synthetic", "synthetic_shifted", "--num_k", "4"]
                  + _cli_argv(os.path.join(tmp, f"b{i}"))
-                 + ["--max_samples", str(SPATIAL_ITERATIONS * B), "--net", net,
+                 + ["--max_samples", str(iterations[i] * B), "--net", net,
                     "--train_img_shape", str(w), str(h), "--checkpoint_every_epochs", "0"]
                  for i, (net, w, h) in enumerate(commands)]
         one = _job("import chip_smoke as c; c._spatial_full_job(%r)" % json.dumps(
@@ -3101,7 +3112,7 @@ def phase_spatial(smi_line):
         full = [_full_width_row(cmd[0], cmd, [t[i] for t in two], one[i],
                                 _logged(os.path.join(tmp, f"b{i}"),
                                         ("loss_source", "loss_b", "loss_dis")),
-                                failures, "b" if i == 0 else "e")
+                                failures, "b" if i == 0 else "e", iterations[i])
                 for i, cmd in enumerate(commands)]
     note = ("ms: host clock around each iteration ended by a synchronize; two ranks share "
             "one card and exchange every conv's halo over gloo through the host: "
@@ -3183,6 +3194,295 @@ def phase_profile(smi_line):
     return launches
 
 
+# Phase ``learning``: the JAX package's learning records, reproduced through the
+# port's trainers, tester and commands. (a) the adaptation A/B harness of
+# tests/test_adaptation_gain.py:53-66, each arm scored at these iterations (the
+# last is the run's length) and gated by that test's assertions at the last two
+AB_ARMS = ("source", "one_classifier", "mcd")
+AB_EVALS = (100, 200, 400)
+AB_GATED = (200, 400)
+AB_VAL_BATCHES = 4  # the 32 synthetic_shifted val images at batch 8 (:69-73)
+# (b) the dtype A/B on (a)'s harness: the gate of tests/test_convergence_ab.py:181-189
+DTYPE_AB_ITERATIONS = 200
+DTYPE_AB_FLOOR = 0.08
+# (c) the main model's quality run (docs/ARCHITECTURE.md:530-533): DRN-D-38 RGB+HHA,
+# bf16, convt, 320x240, batch 16, num_k 4, poly lr 1e-3, 256 MCD iterations.
+# The record gives neither max_samples nor max_steps: 256 samples make 16
+# iterations per epoch, 16 epochs 256 iterations, --max_steps 256 decays the
+# poly lr over the run, and an eval every 4 epochs gives 4 epoch-end evals
+QUALITY_HW, QUALITY_BATCH, QUALITY_SAMPLES, QUALITY_EPOCHS = (240, 320), 16, 256, 16
+QUALITY_EVAL_EVERY = 4
+QUALITY_MIN_MIOU = 0.50
+# the JAX package's records on a TPU v5e, printed beside the port's readings
+TPU_V5E_AB = {  # docs/ARCHITECTURE.md:638-642, target val mIoU at it=100/200/400
+    "source": {"100": 0.096, "200": 0.109, "400": 0.101, "pixel_acc_400": 0.531},
+    "one_classifier": {"100": 0.119, "200": 0.128, "400": 0.125, "pixel_acc_400": 0.642},
+    "mcd": {"100": 0.137, "200": 0.161, "400": 0.163, "pixel_acc_400": 0.670,
+            "loss_dis_first_to_last": [0.00498, 0.00031]}}
+TPU_V5E_QUALITY = {  # docs/ARCHITECTURE.md:530-546, 256 MCD iterations at 320x240
+    "adapt_test_miou_pixel_acc": [0.871, 0.961],
+    "round3_s2d_on_off_batch16": [[0.726, 0.913], [0.744, 0.918]],
+    "round4_dtype_ab_two_seeds": {"bfloat16": [0.681, 0.753], "float32": [0.739, 0.742]}}
+
+
+def _ab_config(out_dir, arm, dtype="float32", seed=0):
+    """The adaptation A/B harness (tests/test_adaptation_gain.py:53-66):
+    drn_d_22, RGB, 40 classes, ``synthetic`` -> ``synthetic_shifted``
+    (domain shift 1.0) at 64x48, batch 8, 32 samples, no random crop; SGD
+    lr 0.05 constant, ``num_k`` 4, a log record every 10 iterations, no
+    epoch checkpoints. The "one_classifier" arm ties F2 to F1."""
+    from mcseg_tpu_torch.core.config import (
+        DataConfig, ExperimentConfig, ModelConfig, TrainConfig)
+
+    return ExperimentConfig(
+        model=ModelConfig(net="drn_d_22", input_ch=3, n_class=40, dtype=dtype,
+                          uses_one_classifier=arm == "one_classifier"),
+        data=DataConfig(src_dataset="synthetic", tgt_dataset="synthetic_shifted",
+                        batch_size=8, train_img_shape=(64, 48), test_img_shape=(64, 48),
+                        input_ch=3, max_samples=32, random_crop=False, domain_shift=1.0),
+        train=TrainConfig(lr=0.05, lr_schedule="constant", epochs=500, num_k=4,
+                          max_steps=10_000, log_every=10, out_dir=out_dir,
+                          checkpoint_every_epochs=0, seed=seed))
+
+
+def _ab_arm(part, arm, dtype="float32", seed=0, evals=None):
+    """One arm of the A/B harness: ``train_source`` for "source" (scored
+    with F1 alone), else ``train_adapt``, for ``evals[-1]`` iterations; the
+    target val split scored (``evaluate``, 4 batches) at each iteration of
+    ``evals`` by ``on_epoch_end``, one JSON line each. Returns the evals
+    (mIoU, pixel accuracy, seconds, the ``loss_dis`` logged up to then) and
+    the kernel launches of training and of scoring; fails on a launch count
+    other than 2 per MCD iteration (1 per source step) and 1 per eval batch.
+    ``evals`` defaults to ``AB_EVALS``. The run's ``last`` checkpoint goes
+    with its directory."""
+    import shutil
+    import tempfile
+
+    from mcseg_tpu_torch.data.datasets import get_dataset
+    from mcseg_tpu_torch.eval.metrics import pixel_accuracy
+    from mcseg_tpu_torch.eval.tester import evaluate
+    from mcseg_tpu_torch.ops.normalize import fused_normalize_stack
+    from mcseg_tpu_torch.train.loops import train_adapt, train_source
+    from mcseg_tpu_torch.utils.logging import JsonlLogger
+
+    evals = evals or AB_EVALS
+    out_dir = tempfile.mkdtemp(dir=os.path.join(HERE, "build"), prefix="learning_")
+    cfg = _ab_config(out_dir, arm, dtype, seed)
+    per_epoch = cfg.data.max_samples // cfg.data.batch_size
+    val = get_dataset(cfg.data.tgt_dataset, cfg.data, "val")
+    log = JsonlLogger(os.path.join(out_dir, "train_log.jsonl"), echo=False)
+    losses = ("loss",) if arm == "source" else ("loss_source", "loss_b", "loss_dis")
+    evals_out, eval_launches, eval_s = {}, 0, 0.0
+
+    def on_epoch_end(epoch, state):
+        nonlocal eval_launches, eval_s
+        it = epoch * per_epoch
+        if it not in evals:
+            return
+        t_eval, before = time.perf_counter(), fused_normalize_stack.launches
+        train_s = t_eval - t0 - eval_s
+        miou, hist, _ = evaluate(state.params(), cfg, val, max_batches=AB_VAL_BATCHES,
+                                 print_table=False, device=DEVICE,
+                                 average_classifiers=arm != "source")
+        eval_launches += fused_normalize_stack.launches - before
+        secs = time.perf_counter() - t_eval
+        eval_s += secs
+        row = {"miou": float(miou), "pixel_acc": pixel_accuracy(hist),
+               "train_seconds": train_s, "eval_seconds": secs,
+               "loss_dis": [r["loss_dis"] for r in _logged(out_dir, losses) if "loss_dis" in r]}
+        evals_out[it] = row
+        emit("learning_eval", part=part, arm=arm, dtype=dtype, seed=seed, iteration=it,
+             miou=row["miou"], pixel_acc=row["pixel_acc"], train_seconds=train_s,
+             eval_seconds=secs)
+
+    fused_normalize_stack.launches = 0
+    t0 = time.perf_counter()
+    try:
+        trainer = train_source if arm == "source" else train_adapt
+        state = trainer(cfg, logger=log, max_iterations=evals[-1],
+                        on_epoch_end=on_epoch_end, device=DEVICE)
+    finally:
+        log.close()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    train_launches = fused_normalize_stack.launches - eval_launches
+    per_iteration = 1 if arm == "source" else 2
+    if state.step != evals[-1] or sorted(evals_out) != sorted(evals) \
+            or train_launches != per_iteration * evals[-1] \
+            or eval_launches != AB_VAL_BATCHES * len(evals):
+        raise AssertionError(
+            f"learning ({part}) {arm} {dtype} seed {seed}: {state.step} iterations, evals at "
+            f"{sorted(evals_out)}, {train_launches} training and {eval_launches} eval launches")
+    return {"evals": evals_out, "train_launches": train_launches,
+            "eval_launches": eval_launches, "seconds": time.perf_counter() - t0}
+
+
+def _ab_gates(arms, it):
+    """The assertions of tests/test_adaptation_gain.py:94-136 at iteration
+    ``it``: name -> [held, the readings]."""
+    import numpy as np
+
+    src, one, mcd = (arms[a]["evals"][it] for a in AB_ARMS)
+    dis, one_dis = mcd["loss_dis"], one["loss_dis"]
+    return {
+        "mcd_above_source_plus_0.03": [
+            mcd["miou"] > src["miou"] + 0.03, [mcd["miou"], src["miou"]]],
+        "mcd_loss_dis_last3_below_first3": [
+            float(np.mean(dis[-3:])) < float(np.mean(dis[:3])), [dis[:3], dis[-3:]]],
+        "one_classifier_loss_dis_below_1e-6": [
+            max(abs(d) for d in one_dis) < 1e-6, max(abs(d) for d in one_dis)],
+        "one_classifier_below_mcd_minus_0.01": [
+            one["miou"] < mcd["miou"] - 0.01, [one["miou"], mcd["miou"]]],
+        "one_classifier_below_source_plus_0.05": [
+            one["miou"] < src["miou"] + 0.05, [one["miou"], src["miou"]]]}
+
+
+def _quality_run(tmp, failures):
+    """(c): ``adapt_train.main`` of the main model at 320x240
+    (``QUALITY_*``) with its epoch-end evals, then ``adapt_test.main`` of
+    ``last``; the commands' output is kept off the script's (its log is
+    read back). Gates: every eval finite, the last epoch-end val mIoU above
+    the first, the test's mIoU at least ``QUALITY_MIN_MIOU``, 2 launches
+    per iteration and 1 per eval batch."""
+    import math
+
+    from mcseg_tpu_torch.cli import adapt_test, adapt_train
+    from mcseg_tpu_torch.ops.normalize import fused_normalize_stack
+
+    out_dir = os.path.join(tmp, "quality")
+    iterations = QUALITY_EPOCHS * (QUALITY_SAMPLES // QUALITY_BATCH)
+    h, w = QUALITY_HW
+    argv = ["synthetic", "synthetic", "--net", "drn_d_38", "--input_ch", "6",
+            "--n_class", "40", "--dtype", "bfloat16", "--upsample", "convt",
+            "--train_img_shape", str(w), str(h), "--batch_size", str(QUALITY_BATCH),
+            "--num_k", "4", "--lr", "1e-3", "--lr_schedule", "poly",
+            "--max_samples", str(QUALITY_SAMPLES), "--epochs", str(QUALITY_EPOCHS),
+            "--max_steps", str(iterations), "--eval_every_epochs", str(QUALITY_EVAL_EVERY),
+            "--log_every", "16", "--checkpoint_every_epochs", str(QUALITY_EVAL_EVERY),
+            "--keep_checkpoints", "1", "--out_dir", out_dir]
+    eval_batches = -(-QUALITY_SAMPLES // QUALITY_BATCH)  # the val split, every sample
+    fused_normalize_stack.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        state = adapt_train.main(argv, device=DEVICE)
+    train_s, train_launches = time.perf_counter() - t0, fused_normalize_stack.launches
+    with open(os.path.join(out_dir, "train_log.jsonl")) as f:
+        logged = [json.loads(ln) for ln in f]
+    evals = [{"epoch": r["epoch"], "step": r["step"], "val_miou": r["val_miou"] / 100.0}
+             for r in logged if "val_miou" in r]
+    losses = [{k: r[k] for k in ("step", "loss_source", "loss_b", "loss_dis", "lr")}
+              for r in logged if "loss_source" in r]
+    fused_normalize_stack.launches = 0
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        miou = adapt_test.main([os.path.join(out_dir, "last")], device=DEVICE)
+    test_s, test_launches = time.perf_counter() - t0, fused_normalize_stack.launches
+    acc = re.findall(r"pixel acc: ([0-9.]+)", out.getvalue())
+    report = {"argv": argv, "iterations": state.step, "epoch_evals": evals, "losses": losses,
+              "adapt_test_miou": float(miou),
+              "adapt_test_pixel_acc": float(acc[-1]) / 100.0 if acc else None,
+              "train_seconds": train_s, "test_seconds": test_s,
+              "launches": {"train_and_epoch_evals": train_launches, "adapt_test": test_launches}}
+    want = {"train_and_epoch_evals": 2 * iterations
+            + eval_batches * (QUALITY_EPOCHS // QUALITY_EVAL_EVERY), "adapt_test": eval_batches}
+    if state.step != iterations or report["launches"] != want:
+        failures.append(f"(c): {state.step} iterations, launches {report['launches']} "
+                        f"against {want}")
+    vals = [e["val_miou"] for e in evals] + [report["adapt_test_miou"]]
+    bad_loss = [r for r in losses if not all(math.isfinite(r[k]) for k in r)]
+    if len(evals) != QUALITY_EPOCHS // QUALITY_EVAL_EVERY or bad_loss \
+            or not all(math.isfinite(v) for v in vals):
+        failures.append(f"(c): evals {vals}, non-finite losses {bad_loss[:3]}")
+    elif not evals[-1]["val_miou"] > evals[0]["val_miou"]:
+        failures.append(f"(c): the last epoch-end val mIoU is not above the first: {evals}")
+    if not report["adapt_test_miou"] >= QUALITY_MIN_MIOU:
+        failures.append(f"(c): adapt_test mIoU {report['adapt_test_miou']} under "
+                        f"{QUALITY_MIN_MIOU}")
+    return report
+
+
+def phase_learning(smi_line):
+    """The JAX package's learning records reproduced with the port on the
+    card, TF32 off (``phase_env``), so that float32 is float32. (a) the
+    adaptation A/B (``_ab_config``): source-only, the one-classifier
+    ablation and MCD, 400 iterations each, the target val split scored at
+    it=100, 200 and 400 and gated by tests/test_adaptation_gain.py's
+    assertions at 200 and at 400; (b) the dtype A/B: MCD 200 iterations in
+    float32 seed 1 and bfloat16 seeds 0 and 1 beside (a)'s float32 seed 0 at
+    it=200, |mean(bf16) - mean(fp32)| within max(2 x the float32 seed
+    spread, 0.08); (c) the main model's quality run through the commands
+    (``_quality_run``). Every reading is printed beside the JAX package's TPU
+    v5e record, which is labelled as such. Files under build/learning_*,
+    each removed after its run."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    failures, steps = [], {}
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    arms = {arm: _ab_arm("a", arm) for arm in AB_ARMS}
+    gates = {it: _ab_gates(arms, it) for it in AB_GATED}
+    failures += [f"(a) it={it} {name}: {reading}" for it, g in gates.items()
+                 for name, (held, reading) in g.items() if not held]
+    steps["a"] = time.perf_counter() - t_phase
+    emit("learning_tpu_v5e_record", part="a", source="docs/ARCHITECTURE.md:629-642",
+         note="the JAX package on a TPU v5e, not the port: the same harness, target "
+              "val mIoU", table=TPU_V5E_AB)
+
+    # (b): float32 seed 0 is (a)'s MCD arm at it=200 (constant lr: the state a
+    # 200-iteration run reaches)
+    runs = {("float32", 0): arms["mcd"]}
+    for dtype, seed in (("float32", 1), ("bfloat16", 0), ("bfloat16", 1)):
+        runs[(dtype, seed)] = _ab_arm("b", "mcd", dtype, seed, evals=(DTYPE_AB_ITERATIONS,))
+    miou = {k: r["evals"][DTYPE_AB_ITERATIONS]["miou"] for k, r in runs.items()}
+    spread = abs(miou[("float32", 0)] - miou[("float32", 1)])
+    gap = abs(np.mean([miou[("bfloat16", s)] for s in (0, 1)])
+              - np.mean([miou[("float32", s)] for s in (0, 1)]))
+    dtype_ab = {"miou": {f"{d}_seed{s}": v for (d, s), v in miou.items()},
+                "float32_seed_spread": spread, "gap_of_means": float(gap),
+                "bound": max(2 * spread, DTYPE_AB_FLOOR), "held": bool(
+                    gap <= max(2 * spread, DTYPE_AB_FLOOR))}
+    if not dtype_ab["held"]:
+        failures.append(f"(b) dtype gap: {dtype_ab}")
+    steps["b"] = time.perf_counter() - t_phase - steps["a"]
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build"),
+                                     prefix="learning_") as tmp:
+        quality = _quality_run(tmp, failures)
+    steps["c"] = time.perf_counter() - t_phase - steps["a"] - steps["b"]
+    emit("learning_tpu_v5e_record", part="c", source="docs/ARCHITECTURE.md:530-546",
+         note="the JAX package on a TPU v5e, not the port: DRN-D-38 RGB+HHA, 256 MCD "
+              "iterations at 320x240 (record 0.871; round 3 batch 16 s2d on/off; round 4 "
+              "bf16 and fp32, two seeds each), mIoU and pixel accuracy", table=TPU_V5E_QUALITY)
+
+    launches = (sum(r["train_launches"] + r["eval_launches"] for r in runs.values())
+                + sum(arms[a]["train_launches"] + arms[a]["eval_launches"]
+                      for a in AB_ARMS if a != "mcd")
+                + sum(quality["launches"].values()))
+    side_by_side = {arm: {str(it): {"port_card": arms[arm]["evals"][it]["miou"],
+                                    "tpu_v5e_jax": TPU_V5E_AB[arm][str(it)]}
+                          for it in AB_EVALS} for arm in AB_ARMS}
+    emit("learning", card=smi_line, learning_launches=launches,
+         tf32={"cudnn": torch.backends.cudnn.allow_tf32,
+               "matmul": torch.backends.cuda.matmul.allow_tf32},
+         a={arm: {"evals": {str(it): {k: v for k, v in e.items() if k != "loss_dis"}
+                            for it, e in r["evals"].items()},
+                  "loss_dis": r["evals"][AB_EVALS[-1]]["loss_dis"],
+                  "seconds": r["seconds"], "launches": r["train_launches"] + r["eval_launches"]}
+            for arm, r in arms.items()},
+         a_gates={str(it): g for it, g in gates.items()}, a_side_by_side=side_by_side,
+         b=dtype_ab, c=quality, step_seconds=steps,
+         phase_seconds=time.perf_counter() - t_phase,
+         note="(a), (b): drn_d_22 RGB 64x48 batch 8 float32 unless named, lr 0.05 "
+              "constant, num_k 4; mIoU on the 32 synthetic_shifted val images; cuDNN's "
+              "float32 backward is not deterministic, so two calls differ")
+    if failures:
+        raise AssertionError(f"phase learning: {failures}")
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     try:
@@ -3214,6 +3514,7 @@ def main():
     parallel_launches = phase_parallel(smi_line, staged_ms)
     spatial_launches = phase_spatial(smi_line)
     profile_launches = phase_profile(smi_line)
+    learning_launches = phase_learning(smi_line)
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [{
         "name": "fused_normalize_stack", "route": "cuda", "source": KERNEL_SRC,
@@ -3227,7 +3528,7 @@ def main():
         "family_launches": family_launches, "corpus_launches": corpus_launches,
         "deploy_launches": deploy_launches, "interop_launches": interop_launches,
         "parallel_launches": parallel_launches, "spatial_launches": spatial_launches,
-        "profile_launches": profile_launches,
+        "profile_launches": profile_launches, "learning_launches": learning_launches,
         "train_case_ms": train_case["kernel_ms"],
         "train_case_share_of_bound": train_case["share_of_bound"],
         "c7_case_ms": c7_case["kernel_ms"], "c7_case_bound_ms": c7_case["bound_ms"],

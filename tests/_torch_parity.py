@@ -185,12 +185,13 @@ def recording_train_inputs(loops_module):
 
 
 @contextlib.contextmanager
-def jax_loops_fed(recorded):
+def jax_loops_fed(recorded, pairs=True):
     """Within the block, the JAX package's training loops train on the
     batches ``recording_train_inputs`` recorded instead of decoding and
     preprocessing their own: the loops' input stream yields those batches
-    (images as float64, sharded on the loop's mesh) and their train
-    preprocess passes a batch through. The port's preprocess makes float32
+    (images as float64, sharded on the loop's mesh), as (source, target)
+    pairs or, without ``pairs`` (the source-only loop), one by one, and
+    their train preprocess passes a batch through. The port's preprocess makes float32
     (its kernel's output), JAX's float64 ones differ from it by float32
     rounding; fed the same batches, the loops' steps, schedules and
     bookkeeping are held to each other. JAX's modules stay as they are."""
@@ -207,14 +208,17 @@ def jax_loops_fed(recorded):
             batch["depth"] = out[2].astype(np.float64)
         return batch
 
-    pairs = [(as_batch(s), as_batch(t)) for s, t in zip(recorded[::2], recorded[1::2])]
+    batches = ([(as_batch(s), as_batch(t)) for s, t in zip(recorded[::2], recorded[1::2])]
+               if pairs else [as_batch(b) for b in recorded])
 
     def make_train_preprocess(cfg, with_depth=False, compute_dtype=None):
         keys = ("image", "label", "depth") if with_depth else ("image", "label")
         return lambda raw, key, remap_table=None: tuple(raw[k] for k in keys)
 
     def input_stream(dataset, mesh, cfg, start_epoch):
-        return iter([(shard_batch(mesh, s), shard_batch(mesh, t)) for s, t in pairs])
+        if not pairs:
+            return iter([shard_batch(mesh, b) for b in batches])
+        return iter([(shard_batch(mesh, s), shard_batch(mesh, t)) for s, t in batches])
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax_loops, "make_train_preprocess", make_train_preprocess)
