@@ -6,6 +6,8 @@ import contextlib
 
 import torch
 
+from mcseg_tpu_torch.utils.profiler import count_copy, span
+
 _DTYPES = {"bfloat16": torch.bfloat16, "float64": torch.float64}
 
 
@@ -18,6 +20,22 @@ def resolve_device(device="cuda") -> torch.device:
             f"device {device!r} requested but CUDA is not available; "
             "pass device='cpu' to run on the CPU")
     return dev
+
+
+def to_device(t: torch.Tensor, device, dtype=None, non_blocking: bool = False
+              ) -> torch.Tensor:
+    """``t.to(device, dtype, non_blocking)``: every host-to-card copy of the
+    program goes through here, so that a profiled run counts its bytes and
+    the copies the host waits for (``utils.profiler.count_copy``), and
+    marks each of the latter as the span ``host_wait``."""
+    if _host_to_card(t, device) and count_copy(t, non_blocking, dtype):
+        with span("host_wait"):
+            return t.to(device=device, dtype=dtype, non_blocking=non_blocking)
+    return t.to(device=device, dtype=dtype, non_blocking=non_blocking)
+
+
+def _host_to_card(t: torch.Tensor, device) -> bool:
+    return t.device.type == "cpu" and torch.device(device).type != "cpu"
 
 
 def compute_dtype(name: str) -> torch.dtype:

@@ -31,6 +31,7 @@ from mcseg_tpu_torch.core.device import compute_context, resolve_device
 from mcseg_tpu_torch.eval.tester import (
     InferenceCore, batch_to_device, load_aux_head, resize_to)
 from mcseg_tpu_torch.models.factory import Params
+from mcseg_tpu_torch.utils.profiler import span
 
 _DTYPES = {"uint8": torch.uint8, "float32": torch.float32}
 
@@ -101,13 +102,15 @@ def make_serve_fn(cfg: ExperimentConfig, params: Params, device="cuda",
                   with_probs: bool = False):
     """``serve(batch) -> pred[, depth][, probs]``: ``ServeModule`` with the
     parameters loaded on ``device``, fed numpy arrays or tensors, under
-    ``torch.inference_mode``; results stay on ``device``."""
+    ``torch.inference_mode``; results stay on ``device``. A profiled run
+    marks each call as the root span ``serve.request``."""
     module = ServeModule(cfg, params, device, average_classifiers, out_shape,
                          with_probs, with_depth)
 
     @torch.inference_mode()
     def serve(batch):
-        return module(batch_to_device(batch, module.core.device))
+        with span("serve.request"):
+            return module(batch_to_device(batch, module.core.device))
 
     return serve
 

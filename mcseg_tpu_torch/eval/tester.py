@@ -26,7 +26,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from mcseg_tpu_torch.core.config import ExperimentConfig
-from mcseg_tpu_torch.core.device import compute_context, compute_dtype, resolve_device
+from mcseg_tpu_torch.core.device import (
+    compute_context, compute_dtype, resolve_device, to_device)
 from mcseg_tpu_torch.data.datasets import get_dataset
 from mcseg_tpu_torch.data.labels import IGNORE, get_label_spec, get_submit_table
 from mcseg_tpu_torch.data.pipeline import map_ahead
@@ -39,6 +40,7 @@ from mcseg_tpu_torch.ops.preprocess import depth_to_meters, make_eval_preprocess
 from mcseg_tpu_torch.ops.upsample import resize_bilinear_nchw
 from mcseg_tpu_torch.parallel.mesh import (
     DataParallel, all_sum, batch_rows, local_batch_rows)
+from mcseg_tpu_torch.utils.profiler import span
 
 
 def _averaged_head_params(params1: Dict[str, torch.Tensor],
@@ -64,8 +66,10 @@ def _averaged_head_params(params1: Dict[str, torch.Tensor],
 
 
 def batch_to_device(raw_batch, device: torch.device) -> Dict[str, torch.Tensor]:
-    """Raw planes (numpy arrays or tensors) -> tensors on ``device``."""
-    return {k: torch.as_tensor(v).to(device) for k, v in raw_batch.items()}
+    """Raw planes (numpy arrays or tensors) -> tensors on ``device``; a
+    profiled run marks it as the span ``serve.to_device``."""
+    with span("serve.to_device"):
+        return {k: to_device(torch.as_tensor(v), device) for k, v in raw_batch.items()}
 
 
 class InferenceCore(nn.Module):
@@ -193,7 +197,7 @@ def make_eval_step(cfg: ExperimentConfig, params: Params, device="cuda",
         if d_head is not None:
             with compute_context(dtype, dev):
                 d_pred = d_head(feat)
-            gt = depth_to_meters(torch.as_tensor(raw_batch["depth"]).to(dev))
+            gt = depth_to_meters(to_device(torch.as_tensor(raw_batch["depth"]), dev))
             aux["depth"] = depth_metric_sums(resize_to(d_pred, gt.shape[1:3]), gt)
         if b_head is not None:
             with compute_context(dtype, dev):

@@ -28,6 +28,9 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from mcseg_tpu_torch.core.device import to_device
+from mcseg_tpu_torch.utils.profiler import span
+
 Planes = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # x, y, z as [B, H, W]
 
 
@@ -130,7 +133,7 @@ def estimate_gravity(normals: Planes, valid: torch.Tensor) -> torch.Tensor:
     Thresholds anneal linearly from 45 to 15 degrees."""
     nx, ny, nz = normals
     b = nx.shape[0]
-    g = torch.tensor([0.0, 1.0, 0.0], device=nx.device).repeat(b, 1)
+    g = to_device(torch.tensor([0.0, 1.0, 0.0]), nx.device).repeat(b, 1)
     w2 = valid.to(torch.float32) ** 2  # (w n)(w n)^T carries w^2
     # the six products of n n^T in fixed point, for every round's sums
     scaled = torch.stack((nx * nx, nx * ny, nx * nz, ny * ny, ny * nz, nz * nz)) * _FIXED_POINT
@@ -146,7 +149,8 @@ def estimate_gravity(normals: Planes, valid: torch.Tensor) -> torch.Tensor:
         cos = torch.abs(nx * gx + ny * gy + nz * gz)
         ang = torch.arccos(cos.clamp(-1.0, 1.0))
         m = gram((ang < thr).to(torch.float32)) - gram((ang > perp_thr).to(torch.float32))
-        _, vecs = torch.linalg.eigh(m)  # ascending eigenvalues
+        with span("host_wait"):  # eigh checks its result on the host
+            _, vecs = torch.linalg.eigh(m)  # ascending eigenvalues
         cand = vecs[:, :, -1]
         cand = torch.where(_dot3(cand, g)[:, None] < 0, -cand, cand)
         g = cand / torch.sqrt(_dot3(cand, cand)).clamp_min(1e-8)[:, None]
@@ -162,7 +166,13 @@ def depth_to_hha_batch(depth: torch.Tensor, K: Optional[CameraIntrinsics] = None
                        ) -> torch.Tensor:
     """[B,H,W] metres (0 / non-finite = missing) -> [B,H,W,3] float32 HHA
     in [0, 255], with the camera ``K`` (default: the NYU Kinect intrinsics
-    scaled to the frame size)."""
+    scaled to the frame size). A profiled run marks it as the span
+    ``hha``."""
+    with span("hha"):
+        return _hha(depth, K)
+
+
+def _hha(depth: torch.Tensor, K: Optional[CameraIntrinsics]) -> torch.Tensor:
     depth = depth.to(torch.float32)
     _, h, w = depth.shape
     K = K or default_intrinsics(h, w)

@@ -31,10 +31,12 @@ import numpy as np
 import torch
 
 from mcseg_tpu_torch.core.config import DataConfig
+from mcseg_tpu_torch.core.device import to_device
 from mcseg_tpu_torch.data.labels import get_label_spec
 from mcseg_tpu_torch.ops.hha import depth_to_hha_batch
 from mcseg_tpu_torch.ops.normalize import fused_normalize_stack
 from mcseg_tpu_torch.ops.upsample import resize_image_nchw
+from mcseg_tpu_torch.utils.profiler import span
 
 
 def depth_to_meters(d: torch.Tensor) -> torch.Tensor:
@@ -46,7 +48,7 @@ def depth_to_meters(d: torch.Tensor) -> torch.Tensor:
 
 def remap_labels(label: torch.Tensor, table: np.ndarray) -> torch.Tensor:
     """Raw corpus ids -> train ids (IGNORE where unmapped), int32."""
-    lut = torch.as_tensor(np.asarray(table, np.int32), device=label.device)
+    lut = to_device(torch.as_tensor(np.asarray(table, np.int32)), label.device)
     return lut[label.long()]
 
 
@@ -141,7 +143,7 @@ def _positions(out_size: int, in_size: int, pre_size: int,
     (``ops/preprocess.py:_interp_matrix``), so that nearest indices agree
     bit for bit near a tie."""
     i = torch.arange(out_size, dtype=torch.float32, device=offsets.device)
-    scale = torch.tensor(in_size / pre_size, dtype=torch.float32, device=offsets.device)
+    scale = to_device(torch.tensor(in_size / pre_size, dtype=torch.float32), offsets.device)
     return (offsets.to(torch.float32)[:, None] + i[None, :] + 0.5) * scale - 0.5
 
 
@@ -194,7 +196,7 @@ def _resize_nearest_labels(label: torch.Tensor, hw: Tuple[int, int]) -> torch.Te
         m = label.shape[dim]
         if m == n:
             continue
-        scale = torch.tensor(np.float32(m) / np.float32(n), device=label.device)
+        scale = to_device(torch.tensor(np.float32(m) / np.float32(n)), label.device)
         pos = (torch.arange(n, dtype=torch.float32, device=label.device) + 0.5) * scale
         out = out.index_select(dim, torch.floor(pos).long())
     return out
@@ -266,7 +268,9 @@ def make_train_preprocess(cfg: DataConfig, out_dtype: torch.dtype = torch.float3
         extra = _extra_channels(batch, cfg.input_ch, cfg.hha_on_device)
         depth = depth_to_meters(batch["depth"])[..., None] if with_depth else None
         h0, w0 = image.shape[1:3]
-        tops, lefts = tops.to(dev), lefts.to(dev)
+        with span("train.draws"):
+            tops, lefts = to_device(tops, dev), to_device(lefts, dev)
+            flip = to_device(flip, dev, torch.int32)
         if cfg.random_crop and pre != target and pre[0] >= h0 and pre[1] >= w0:
             t_rows = _positions(target[0], h0, pre[0], tops)
             t_cols = _positions(target[1], w0, pre[1], lefts)
@@ -287,7 +291,6 @@ def make_train_preprocess(cfg: DataConfig, out_dtype: torch.dtype = torch.float3
                 depth = _crop(resize_bilinear(depth, pre), tops, lefts, target)
             if label is not None:
                 label = _crop(_resize_nearest_labels(label, pre), tops, lefts, target)
-        flip = flip.to(device=dev, dtype=torch.int32)
         flipped = (flip > 0)[:, None, None]
         if label is not None:
             label = torch.where(flipped, label.flip(-1), label)

@@ -22,8 +22,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from mcseg_tpu_torch.core.device import to_device
 from mcseg_tpu_torch.parallel.mesh import DataParallel
 from mcseg_tpu_torch.parallel.spatial import halo_rows
+from mcseg_tpu_torch.utils.profiler import backward_span, span
 
 
 def bilinear_kernel(kernel_size: int, dtype=np.float32) -> np.ndarray:
@@ -45,7 +47,7 @@ def upsample_bilinear_convt(x: torch.Tensor, factor: int,
     c = x.shape[1]
     k = 2 * factor
     taps = torch.from_numpy(bilinear_kernel(k, np.float64))
-    weight = taps.to(device=x.device, dtype=x.dtype).expand(c, 1, k, k).contiguous()
+    weight = to_device(taps, x.device, x.dtype).expand(c, 1, k, k).contiguous()
     padding = factor // 2
     if dp is not None:
         x, padding = halo_rows(x, dp, 1, 1), (factor // 2 + factor, factor // 2)
@@ -76,9 +78,19 @@ def resize_image_nchw(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
 def upsample_logits(x: torch.Tensor, factor: int, mode: str = "resize",
                     dp: Optional[DataParallel] = None) -> torch.Tensor:
     """``factor`` x bilinear upsample of [B,C,h,w] in ``mode``; under ``dp``
-    (a layout splitting rows) ``x`` and the output are row blocks."""
+    (a layout splitting rows) ``x`` and the output are row blocks. A
+    profiled run marks it as the span ``upsample``, forward and backward,
+    whatever computes it."""
     if factor == 1:
         return x
+    with span("upsample"):
+        out = _upsample(x, factor, mode, dp)
+        backward_span("upsample", out, x)
+    return out
+
+
+def _upsample(x: torch.Tensor, factor: int, mode: str,
+              dp: Optional[DataParallel]) -> torch.Tensor:
     if mode == "convt":
         return upsample_bilinear_convt(x, factor, dp)
     if mode == "resize":

@@ -9,13 +9,19 @@ depth 0.5-3.5 m), suncg -> nyu. It times ``--steps`` iterations after one
 warm-up (``utils.profiler.time_step``), then records ``--steps`` more under
 ``torch.profiler`` (``utils.profiler.trace``, a Chrome/Perfetto trace in
 ``--trace_dir``) and prints their time per step by category, then the top
-rows with their calls per step.
+rows with their calls per step, then the program's spans (``train.iteration``,
+``train.preprocess``, ``train.draws``, ``hha``, ``mcd.step_a``/``b``/``c``,
+``upsample`` and ``upsample.backward``, ``host_wait``; ``utils.profiler``)
+with their calls, host ms and device ms per step, and its counters per step
+(``h2d_bytes``, ``h2d_blocking``: the host-to-card copies and those the host
+waits for). It refuses to print a span table that the store's bound cut.
 
 On the card the rows are the device's (kernels, copies and sets, each by
 its self device time); on the CPU (``main(argv, device="cpu")``) they are
 the host operators by their self CPU time. ``summarize`` groups either: the
 normalize kernel, collectives, batch norm, convolutions, copies, and
-everything else as "other", so the categories add up to the total.
+everything else as "other", so the categories add up to the total. The
+spans' ``record_function`` ranges are no rows there.
 
     python -m mcseg_tpu_torch.tools.profile_step --batch 24 --steps 3
 """
@@ -60,9 +66,9 @@ def profile_rows(prof) -> Tuple[List[Dict], bool]:
     descending, and whether they are the device's: where the profile holds
     device rows (on the card), the device's rows with their self device
     time (an operator's own row would repeat its kernels' time), else the
-    host operators with their self CPU time. Each row: ``name``, ``ms`` and
-    ``calls`` (totals over the profile)."""
-    avgs = list(prof.key_averages())
+    host operators with their self CPU time; the spans' ranges are left out.
+    Each row: ``name``, ``ms`` and ``calls`` (totals over the profile)."""
+    avgs = [r for r in prof.key_averages() if not getattr(r, "is_user_annotation", False)]
     cuda = torch.autograd.DeviceType.CUDA
     rows = [{"name": r.key, "ms": r.self_device_time_total / 1e3, "calls": r.count}
             for r in avgs if r.device_type == cuda and r.self_device_time_total > 0]
@@ -109,6 +115,38 @@ def format_summary(summary: Dict) -> str:
     return "\n".join(out)
 
 
+def span_table(records: List[Dict], steps: int = 1) -> Dict:
+    """``utils.profiler.span_records`` of ``steps`` steps, per step:
+    ``spans`` {name: {calls, host_ms, device_ms}} in the order each name
+    first opened (a backward span as ``<name>.backward``; ``device_ms``
+    None off the card) and ``counters`` {name: total}."""
+    spans: Dict[str, Dict] = {}
+    counters: Dict[str, float] = {}
+    for r in records:
+        if r["kind"] == "count":
+            counters[r["name"]] = counters.get(r["name"], 0) + r["count"] / steps
+            continue
+        row = spans.setdefault(r["name"] + (".backward" if r["backward"] else ""),
+                               {"calls": 0.0, "host_ms": 0.0, "device_ms": None})
+        row["calls"] += 1 / steps
+        row["host_ms"] += r["host_ms"] / steps
+        if r["device_ms"] is not None:
+            row["device_ms"] = (row["device_ms"] or 0.0) + r["device_ms"] / steps
+    return {"spans": spans, "counters": counters}
+
+
+def format_spans(table: Dict) -> str:
+    """``span_table``'s result as the tool prints it."""
+    out = ["  --- spans (per step) ---"]
+    for name, s in table["spans"].items():
+        dev = "-" if s["device_ms"] is None else f"{s['device_ms']:.2f}"
+        out.append(f"  SPAN x{s['calls']:<6g} host {s['host_ms']:10.2f} ms  device "
+                   f"{dev:>10} ms  {name}")
+    for name, v in table["counters"].items():
+        out.append(f"  COUNT {v:<14g} {name}")
+    return "\n".join(out)
+
+
 def _raw(b: int, h: int, w: int, seed: int, device) -> Dict[str, torch.Tensor]:
     """The JAX tool's raw batch: uint8 RGB, labels 0-40, depth 0.5-3.5 m."""
     r = np.random.RandomState(seed)
@@ -135,7 +173,8 @@ def main(argv=None, device="cuda") -> Dict:
     from mcseg_tpu_torch.core.config import DataConfig, ExperimentConfig, ModelConfig, TrainConfig
     from mcseg_tpu_torch.train.loops import make_adapt_iteration
     from mcseg_tpu_torch.train.state import create_train_state
-    from mcseg_tpu_torch.utils.profiler import time_step, trace
+    from mcseg_tpu_torch.utils.profiler import (
+        dropped_spans, reset_spans, span_records, time_step, trace)
 
     b = args.batch
     w, h = args.img
@@ -155,16 +194,23 @@ def main(argv=None, device="cuda") -> Dict:
           f"{args.steps} steps after 1 warm-up)", flush=True)
 
     shutil.rmtree(args.trace_dir, ignore_errors=True)
+    reset_spans()
     with trace(args.trace_dir) as prof:
         for _ in range(args.steps):
             m = iterate(state, src, tgt)
         loss = float(m["loss_source"])  # waits for the card
     print("traced; loss_source =", loss, flush=True)
     summary = summarize(prof, args.steps, top=args.top)
+    if dropped_spans():
+        raise RuntimeError(f"{dropped_spans()} span records past the store's bound: "
+                           "the span table would be short; profile fewer --steps")
+    spans = span_table(span_records(), args.steps)
+    reset_spans()
     print(format_summary(summary), flush=True)
+    print(format_spans(spans), flush=True)
     return {"ms_per_step": timing["sec_per_iter"] * 1e3,
             "images_per_s": timing["items_per_sec"], "loss_source": loss,
-            "trace": os.path.join(args.trace_dir, "trace.json"), **summary}
+            "trace": os.path.join(args.trace_dir, "trace.json"), **summary, **spans}
 
 
 if __name__ == "__main__":

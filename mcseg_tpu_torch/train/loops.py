@@ -62,6 +62,7 @@ from mcseg_tpu_torch.utils.checkpoint import (
     AsyncCheckpointer, load_checkpoint, load_config, prune_epoch_checkpoints,
     save_checkpoint)
 from mcseg_tpu_torch.utils.logging import JsonlLogger, StepTimer, make_run_logger
+from mcseg_tpu_torch.utils.profiler import span
 
 
 def augment_generator(seed: int, step: int) -> torch.Generator:
@@ -87,12 +88,15 @@ def _draws(gen: torch.Generator, b: int, pre, target, cfg: ExperimentConfig,
            dp: Optional[DataParallel]):
     """The crop and flip draws of this rank's ``b`` rows: those of the
     global batch of ``b * data blocks`` rows, drawn whole on every rank,
-    then cut to the rows of the rank's data block."""
-    draws = draw_augment(gen, b * data_blocks(dp), pre, target, cfg.data)
-    rows = batch_rows(dp, b * data_blocks(dp))
-    if rows is None:
-        return draws
-    return tuple(t[int(rows[0]):int(rows[-1]) + 1] for t in draws)
+    then cut to the rows of the rank's data block. A profiled run marks
+    the draws as the span ``train.draws``, as it marks their copy to the
+    card in the preprocess."""
+    with span("train.draws"):
+        draws = draw_augment(gen, b * data_blocks(dp), pre, target, cfg.data)
+        rows = batch_rows(dp, b * data_blocks(dp))
+        if rows is None:
+            return draws
+        return tuple(t[int(rows[0]):int(rows[-1]) + 1] for t in draws)
 
 
 def make_adapt_iteration(cfg: ExperimentConfig, dp: Optional[DataParallel] = None
@@ -104,7 +108,9 @@ def make_adapt_iteration(cfg: ExperimentConfig, dp: Optional[DataParallel] = Non
     passed to the step, and also called with 'preprocess' after both
     preprocesses. Under ``dp`` the batches are the rows of this rank's data
     block of the global batch, and under spatial partitioning the step gets
-    the rank's row block of each preprocessed input."""
+    the rank's row block of each preprocessed input. A profiled run marks
+    each call as the root span ``train.iteration`` and both preprocesses as
+    ``train.preprocess`` (so do the other trainers' ``iterate``)."""
     dtype = compute_dtype(cfg.model.dtype)
     pp = make_train_preprocess(cfg.data, _img_dtype(dtype))
     step = make_mcd_step(cfg.train, cfg.model.uses_one_classifier, dtype, dp)
@@ -112,15 +118,17 @@ def make_adapt_iteration(cfg: ExperimentConfig, dp: Optional[DataParallel] = Non
     as_input = _as_input(dtype)
 
     def iterate(state: MCDTrainState, src, tgt, mark=None):
-        gen = augment_generator(cfg.train.seed, state.step)
-        b = src["image"].shape[0]
-        xs, ys = pp(src, *_draws(gen, b, pre, target, cfg, dp))
-        xt, _ = pp({k: v for k, v in tgt.items() if k != "label"},
-                   *_draws(gen, b, pre, target, cfg, dp))
-        xs, ys, xt = shard_rows(dp, xs, ys, xt)
-        if mark:
-            mark("preprocess")
-        return step(state, as_input(xs), ys, as_input(xt), mark)
+        with span("train.iteration"):
+            with span("train.preprocess"):
+                gen = augment_generator(cfg.train.seed, state.step)
+                b = src["image"].shape[0]
+                xs, ys = pp(src, *_draws(gen, b, pre, target, cfg, dp))
+                xt, _ = pp({k: v for k, v in tgt.items() if k != "label"},
+                           *_draws(gen, b, pre, target, cfg, dp))
+                xs, ys, xt = shard_rows(dp, xs, ys, xt)
+            if mark:
+                mark("preprocess")
+            return step(state, as_input(xs), ys, as_input(xt), mark)
 
     return iterate
 
@@ -138,10 +146,12 @@ def make_source_iteration(cfg: ExperimentConfig, dp: Optional[DataParallel] = No
     as_input = _as_input(dtype)
 
     def iterate(state: MCDTrainState, src):
-        gen = augment_generator(cfg.train.seed, state.step)
-        x, y = shard_rows(dp, *pp(src, *_draws(gen, src["image"].shape[0], pre, target,
-                                                  cfg, dp)))
-        return step(state, as_input(x), y)
+        with span("train.iteration"):
+            with span("train.preprocess"):
+                gen = augment_generator(cfg.train.seed, state.step)
+                x, y = shard_rows(dp, *pp(src, *_draws(gen, src["image"].shape[0], pre,
+                                                          target, cfg, dp)))
+            return step(state, as_input(x), y)
 
     return iterate
 
@@ -173,16 +183,18 @@ def make_multitask_iteration(cfg: ExperimentConfig, depth_weight: float = 0.5,
     as_input = _as_input(dtype)
 
     def iterate(state: MCDTrainState, src, tgt, mark=None):
-        gen = augment_generator(cfg.train.seed, state.step)
-        b = src["image"].shape[0]
-        xs, ys, ds = pp_src(src, *_draws(gen, b, pre, target, cfg, dp))
-        xt, _ = pp_tgt({k: v for k, v in tgt.items() if k != "label"},
-                       *_draws(gen, b, pre, target, cfg, dp))
-        bnd = _row_split_boundary(dp, ys, boundary_weight)
-        xs, ys, ds, xt = shard_rows(dp, xs, ys, ds, xt)
-        if mark:
-            mark("preprocess")
-        return step(state, as_input(xs), ys, ds, as_input(xt), mark, boundary=bnd)
+        with span("train.iteration"):
+            with span("train.preprocess"):
+                gen = augment_generator(cfg.train.seed, state.step)
+                b = src["image"].shape[0]
+                xs, ys, ds = pp_src(src, *_draws(gen, b, pre, target, cfg, dp))
+                xt, _ = pp_tgt({k: v for k, v in tgt.items() if k != "label"},
+                               *_draws(gen, b, pre, target, cfg, dp))
+                bnd = _row_split_boundary(dp, ys, boundary_weight)
+                xs, ys, ds, xt = shard_rows(dp, xs, ys, ds, xt)
+            if mark:
+                mark("preprocess")
+            return step(state, as_input(xs), ys, ds, as_input(xt), mark, boundary=bnd)
 
     return iterate
 
@@ -201,11 +213,13 @@ def make_multitask_source_iteration(cfg: ExperimentConfig, depth_weight: float =
     as_input = _as_input(dtype)
 
     def iterate(state: MCDTrainState, src):
-        gen = augment_generator(cfg.train.seed, state.step)
-        x, y, d = pp(src, *_draws(gen, src["image"].shape[0], pre, target, cfg, dp))
-        bnd = _row_split_boundary(dp, y, boundary_weight)
-        x, y, d = shard_rows(dp, x, y, d)
-        return step(state, as_input(x), y, d, boundary=bnd)
+        with span("train.iteration"):
+            with span("train.preprocess"):
+                gen = augment_generator(cfg.train.seed, state.step)
+                x, y, d = pp(src, *_draws(gen, src["image"].shape[0], pre, target, cfg, dp))
+                bnd = _row_split_boundary(dp, y, boundary_weight)
+                x, y, d = shard_rows(dp, x, y, d)
+            return step(state, as_input(x), y, d, boundary=bnd)
 
     return iterate
 

@@ -46,6 +46,7 @@ from mcseg_tpu_torch.losses.seg import cross_entropy_2d
 from mcseg_tpu_torch.parallel.mesh import DataParallel, all_reduce_grads
 from mcseg_tpu_torch.train.optim import make_lr_schedule, set_lr
 from mcseg_tpu_torch.train.state import MCDTrainState
+from mcseg_tpu_torch.utils.profiler import span
 
 
 def zero_missing_grads(opt: torch.optim.Optimizer) -> None:
@@ -113,8 +114,10 @@ def make_mcd_step(cfg: TrainConfig, uses_one_classifier: bool = False,
     scalar tensors on the device (read them only where the host needs
     them), ``lr`` as a float. ``dtype`` is the activation dtype (bf16 runs
     under autocast). ``mark(name)``, when given, is called after each
-    sub-step ('A', 'B', 'C') for timing. ``dp``: the data-parallel context
-    (the batches are this rank's rows; the losses are the global batch's)."""
+    sub-step ('A', 'B', 'C') for timing; a profiled run marks the same
+    stretches as the spans ``mcd.step_a``, ``mcd.step_b`` and
+    ``mcd.step_c``. ``dp``: the data-parallel context (the batches are this
+    rank's rows; the losses are the global batch's)."""
     disc = get_prob_distance_criterion(cfg.d_loss, dp)
     lr_fn = make_lr_schedule(cfg.lr_schedule, cfg.lr, cfg.max_steps, cfg.lr_power)
     num_k = cfg.num_k
@@ -125,29 +128,32 @@ def make_mcd_step(cfg: TrainConfig, uses_one_classifier: bool = False,
         g, f1 = state.g, state.f1
         f2 = f1 if uses_one_classifier else state.f2
         lr = lr_fn(state.step)
-        set_lr(state.opt_g, lr)
-        set_lr(state.opt_f, lr)
-        state.reseed_masks()
+        with span("mcd.step_a"):
+            set_lr(state.opt_g, lr)
+            set_lr(state.opt_f, lr)
+            state.reseed_masks()
 
-        # ---- STEP A: source supervision, update G + F1 + F2 ----
-        state.opt_g.zero_grad(set_to_none=True)
-        state.opt_f.zero_grad(set_to_none=True)
-        with compute_context(dtype, xs.device):
-            feat = g(xs)
-            o1, o2 = f1(feat), f2(feat)
-        loss_a = cross_entropy_2d(o1, ys, dp=dp) + cross_entropy_2d(o2, ys, dp=dp)
-        loss_a.backward()
-        zero_missing_grads(state.opt_f)
-        all_reduce_grads(dp, state.opt_g, state.opt_f)
-        state.opt_g.step()
-        state.opt_f.step()
-        del feat, o1, o2
+            # ---- STEP A: source supervision, update G + F1 + F2 ----
+            state.opt_g.zero_grad(set_to_none=True)
+            state.opt_f.zero_grad(set_to_none=True)
+            with compute_context(dtype, xs.device):
+                feat = g(xs)
+                o1, o2 = f1(feat), f2(feat)
+            loss_a = cross_entropy_2d(o1, ys, dp=dp) + cross_entropy_2d(o2, ys, dp=dp)
+            loss_a.backward()
+            zero_missing_grads(state.opt_f)
+            all_reduce_grads(dp, state.opt_g, state.opt_f)
+            state.opt_g.step()
+            state.opt_f.step()
+            del feat, o1, o2
         if mark:
             mark("A")
-        loss_b = step_b(state, f2, xs, ys, xt, disc, dtype, dp)
+        with span("mcd.step_b"):
+            loss_b = step_b(state, f2, xs, ys, xt, disc, dtype, dp)
         if mark:
             mark("B")
-        loss_c = step_c(state, f2, xt, disc, dtype, num_k, dp)
+        with span("mcd.step_c"):
+            loss_c = step_c(state, f2, xt, disc, dtype, num_k, dp)
         if mark:
             mark("C")
 

@@ -35,6 +35,7 @@ from mcseg_tpu_torch.parallel.mesh import DataParallel, all_reduce_grads
 from mcseg_tpu_torch.train.mcd import step_b, step_c
 from mcseg_tpu_torch.train.optim import make_lr_schedule, set_lr
 from mcseg_tpu_torch.train.state import MCDTrainState
+from mcseg_tpu_torch.utils.profiler import span
 
 
 def aux_head_keys(boundary_weight: float) -> Tuple[str, ...]:
@@ -127,18 +128,21 @@ def make_multitask_mcd_step(cfg: TrainConfig, depth_weight: float = 0.5,
              mark: Optional[Callable[[str], None]] = None,
              boundary=None) -> Dict[str, object]:
         lr = lr_fn(state.step)
-        set_lr(state.opt_g, lr)
-        set_lr(state.opt_f, lr)
-        state.reseed_masks()
-        loss_a, seg, dep, bnd = _source_losses(state, xs, ys, ds, depth_weight,
-                                               boundary_weight, dtype, dp, boundary)
-        _update_all(state, loss_a, dp)
+        with span("mcd.step_a"):
+            set_lr(state.opt_g, lr)
+            set_lr(state.opt_f, lr)
+            state.reseed_masks()
+            loss_a, seg, dep, bnd = _source_losses(state, xs, ys, ds, depth_weight,
+                                                   boundary_weight, dtype, dp, boundary)
+            _update_all(state, loss_a, dp)
         if mark:
             mark("A")
-        loss_b = step_b(state, state.f2, xs, ys, xt, disc, dtype, dp)
+        with span("mcd.step_b"):
+            loss_b = step_b(state, state.f2, xs, ys, xt, disc, dtype, dp)
         if mark:
             mark("B")
-        loss_c = step_c(state, state.f2, xt, disc, dtype, cfg.num_k, dp)
+        with span("mcd.step_c"):
+            loss_c = step_c(state, state.f2, xt, disc, dtype, cfg.num_k, dp)
         if mark:
             mark("C")
         state.step += 1

@@ -328,6 +328,30 @@ def _grads_of(fn, x, module=None, probe=None):
     return {"y": y.detach().cpu(), "dx": x.grad.cpu(), "grads": grads}
 
 
+def _upsample_spans(fn, x, probe):
+    """``fn(x)``'s ``upsample`` spans under the profiler (CPU): each
+    record's (backward, root), and the autograd nodes that the profiler saw
+    inside the backward spans."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mcseg_tpu_torch.utils import profiler
+
+    profiler.reset_spans()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with profiler.span("train.iteration"):
+            _grads_of(fn, x, probe=probe)
+    records = [(r["backward"], r["root"]) for r in profiler.span_records()
+               if r["name"] == "upsample"]
+    profiler.reset_spans()
+    events = prof.events()
+    marked = [e for e in events if e.name == "mcseg::upsample.backward"]
+    nodes = sorted({e.name for e in events for m in marked
+                    if e.name.rstrip("0123456789").endswith("Backward")
+                    and m.time_range.start <= e.time_range.start
+                    and e.time_range.end <= m.time_range.end})
+    return {"records": records, "nodes": nodes}
+
+
 def row_split_module(kind, params, **kw):
     """A float64 module of the row-split trunks in train mode, its
     parameters from the numpy dict ``params`` (None: torch's
@@ -391,6 +415,9 @@ def halo_task(dp, space, convs, upsample, stem_pool=None, ceil_pool=None, module
         out["upsample"][mode] = _grads_of(
             lambda t: upsample_logits(t, factor, mode, dp), block_of(dp, x, 2).to(dp.device),
             probe=block_of(dp, probe, 2).to(dp.device))
+        out["upsample"][mode]["spans"] = _upsample_spans(
+            lambda t: upsample_logits(t, factor, mode, dp), block_of(dp, x, 2).to(dp.device),
+            block_of(dp, probe, 2).to(dp.device))
     pools = {"stem_pool": (stem_pool, lambda t: psp_stem_pool(t, dp)),
              "ceil_pool": (ceil_pool, lambda t: F.max_pool2d(t, 2, 2, ceil_mode=True))}
     for name, (case, fn) in pools.items():

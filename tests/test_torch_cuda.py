@@ -1,5 +1,6 @@
 """CUDA kernels of the port against their plain PyTorch versions, on the card,
-and torch's native SyncBatchNorm ops against the port's plain twin.
+torch's native SyncBatchNorm ops against the port's plain twin, and the
+program's spans and counters (``utils/profiler.py``) on the card's clock.
 
 Imports neither JAX nor the JAX package, so it runs where only PyTorch is
 installed; ``tests/conftest.py`` imports JAX, hence on the card:
@@ -390,3 +391,158 @@ def test_halo_exchange_over_gloo_on_the_card_equals_the_unsplit_ops(cuda_device)
         for r, res in enumerate(ranks):
             close(res[0]["upsample"][mode]["y"], rows(y, r))
             close(res[0]["upsample"][mode]["dx"], rows(dx, r))
+
+
+def _span_cfg(batch):
+    from mcseg_tpu_torch.core.config import DataConfig, ExperimentConfig, ModelConfig, TrainConfig
+
+    return ExperimentConfig(
+        model=ModelConfig(net="drn_d_22", input_ch=6, n_class=40, dtype="bfloat16"),
+        data=DataConfig(src_dataset="suncg", tgt_dataset="nyu", batch_size=batch,
+                        train_img_shape=(640, 480), test_img_shape=(640, 480), input_ch=6,
+                        hha_on_device=True, random_crop=True, crop_scale_min=0.7,
+                        random_flip=True),
+        train=TrainConfig(lr=1e-3, num_k=1, max_steps=100))
+
+
+def _span_raw(seed, b):
+    r = np.random.RandomState(seed)
+    return {"image": torch.from_numpy(r.randint(0, 255, (b, 480, 640, 3)).astype(np.uint8)),
+            "label": torch.from_numpy(r.randint(0, 41, (b, 480, 640)).astype(np.uint8)),
+            "depth": torch.from_numpy(r.rand(b, 480, 640).astype(np.float32) * 3 + 0.5)}
+
+
+def _kernel_ms(e):
+    return sum(k.duration for k in e.kernels) * 1e-3 + sum(_kernel_ms(c) for c in e.cpu_children)
+
+
+def _subtree(e):
+    yield e
+    for c in e.cpu_children:
+        yield from _subtree(c)
+
+
+@pytest.mark.cuda
+def test_upsample_spans_time_the_upsample_kernels_on_the_card(cuda_device):
+    """One traced MCD iteration of drn_d_22 RGB+HHA, batch 16 at 640x480,
+    bf16, ``num_k`` 1: every span's device ms is positive (a ``host_wait``
+    span's at least 0), the iteration makes 21 blocking host-to-card
+    copies, each in a ``host_wait`` span beside HHA's 6 eighs, and the
+    ``upsample`` spans'
+    device ms, forward and backward, lie within 5% of the profiler's
+    kernel time under ``aten::conv_transpose2d`` and the
+    ``ConvolutionBackward0`` nodes of its sequence numbers. (A forward span
+    also holds the blocking copy of the taps and the card's idle while the
+    host then launches the conv, ~0.3-0.5 ms: 6% of the kernels at batch
+    2, under 2% at 16.)"""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mcseg_tpu_torch.train.loops import make_adapt_iteration
+    from mcseg_tpu_torch.train.state import create_train_state
+    from mcseg_tpu_torch.utils import profiler
+
+    cfg = _span_cfg(16)
+    state = create_train_state(cfg.model, cfg.train, 0, cuda_device)
+    iterate = make_adapt_iteration(cfg)
+    src, tgt = ({k: v.to(cuda_device) for k, v in _span_raw(s, 16).items()}
+                for s in (0, 1))
+    iterate(state, src, tgt)  # warm-up
+    torch.cuda.synchronize()
+    profiler.reset_spans()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        iterate(state, src, tgt)
+        torch.cuda.synchronize()
+    records = profiler.span_records()
+    profiler.reset_spans()
+    spans = [r for r in records if r["kind"] == "span" and r["name"] != "host_wait"]
+    waits = [r for r in records if r["kind"] == "span" and r["name"] == "host_wait"]
+    assert len(spans) == 1 + 1 + 4 + 2 + 3 + 16 and all(r["device_ms"] > 0 for r in spans)
+    assert sum(r["count"] for r in records if r["name"] == "h2d_blocking") == 21
+    assert len(waits) == 21 + 6 and all(r["device_ms"] >= 0 for r in waits)
+    span_ms = sum(r["device_ms"] for r in spans if r["name"] == "upsample")
+    events = prof.events()
+    forward = [e for e in events if e.name == "aten::conv_transpose2d"]
+    seqs = {d.sequence_nr for e in forward for d in _subtree(e) if d.sequence_nr >= 0}
+    backward = [e for e in events if e.name == "ConvolutionBackward0" and e.sequence_nr in seqs]
+    assert len(forward) == len(backward) == 8
+    kernel_ms = sum(_kernel_ms(e) for e in forward + backward)
+    assert abs(span_ms - kernel_ms) <= 0.05 * kernel_ms, (span_ms, kernel_ms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("host", [True, False], ids=["host_traced", "device_only"])
+def test_served_request_spans_and_copies_on_the_card(cuda_device, host):
+    """A request of the serving entry records its spans with positive device
+    ms and 4 blocking copies (the image and depth planes, HHA's gravity,
+    the head's taps), each in a ``host_wait`` span beside HHA's 3 eighs,
+    under a profiler that traces the host, and under one that traces the
+    card's activity alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mcseg_tpu_torch.eval.serving import make_serve_fn
+    from mcseg_tpu_torch.train.state import create_train_state
+    from mcseg_tpu_torch.utils import profiler
+
+    cfg = _span_cfg(2)
+    serve = make_serve_fn(cfg, create_train_state(cfg.model, cfg.train, 0, "cpu").params(),
+                          cuda_device)
+    request = {k: v.numpy() for k, v in _span_raw(2, 2).items() if k != "label"}
+    serve(request)
+    torch.cuda.synchronize()
+    profiler.reset_spans()
+    acts = [ProfilerActivity.CPU] * host + [ProfilerActivity.CUDA]
+    with profile(activities=acts):
+        serve(request).cpu()
+    records = profiler.span_records()
+    profiler.reset_spans()
+    spans = [r for r in records if r["kind"] == "span" and r["name"] != "host_wait"]
+    waits = [r for r in records if r["kind"] == "span" and r["name"] == "host_wait"]
+    assert [r["name"] for r in spans] == ["serve.request", "serve.to_device", "hha", "upsample"]
+    assert all(r["device_ms"] > 0 and r["root"] == spans[0]["id"] for r in spans)
+    assert sum(r["count"] for r in records if r["name"] == "h2d_blocking") == 4
+    assert len(waits) == 4 + 3 and all(r["root"] == spans[0]["id"] for r in waits)
+
+
+@pytest.mark.cuda
+def test_every_wait_of_a_request_lies_in_a_host_wait_span(cuda_device):
+    """Each call of a served request at which the host waits for the card
+    (``torch.cuda.set_sync_debug_mode`` warns at every one) lies inside a
+    ``host_wait`` span, so that the serving entry's host ms less its
+    ``host_wait`` spans' (the benchmark's ``enqueue_ms.serve``) holds no
+    wait for the card."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from mcseg_tpu_torch.eval.serving import make_serve_fn
+    from mcseg_tpu_torch.train.state import create_train_state
+    from mcseg_tpu_torch.utils import profiler
+
+    cfg = _span_cfg(2)
+    serve = make_serve_fn(cfg, create_train_state(cfg.model, cfg.train, 0, "cpu").params(),
+                          cuda_device)
+    request = {k: v.numpy() for k, v in _span_raw(2, 2).items() if k != "label"}
+    serve(request)
+    torch.cuda.synchronize()
+    profiler.reset_spans()
+    syncs = []  # (the spans open at a synchronizing call, its site)
+
+    def note(message, category, filename, lineno, *args, **kwargs):
+        if "synchroniz" in str(message):
+            syncs.append(([sid for sid, _ in profiler._stack()], f"{filename}:{lineno}"))
+
+    with profile(activities=[ProfilerActivity.CUDA]):
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")  # warns once itself, before the request
+            warnings.showwarning = note
+            try:
+                serve(request)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    records = profiler.span_records()
+    profiler.reset_spans()
+    names = {r["id"]: r["name"] for r in records if r["kind"] == "span"}
+    opened = [([names.get(sid) for sid in stack], site) for stack, site in syncs]
+    print("syncs in a request:", len(opened), opened)
+    assert opened and all("host_wait" in spans for spans, _ in opened), opened

@@ -11,7 +11,9 @@ of thread timing; its ``_synth_corpus`` decodes to JAX's arrays.
 ``profile_step``: one traced MCD iteration of drn_d_22 RGB+HHA at 32x32,
 batch 2, ``num_k`` 1, on the CPU when asked (``device="cpu"``): the
 category table with the normalize kernel's plain version called twice per
-step, the categories adding up to the total; without ``device`` it needs a
+step, the categories adding up to the total, then the table of the
+program's spans (one ``train.iteration`` a step, 8 ``upsample`` forward and
+backward at ``num_k`` 1) and its counters; without ``device`` it needs a
 card.
 """
 
@@ -96,6 +98,15 @@ def test_profile_step_on_the_cpu_prints_the_category_table(tmp_path, capsys):
     assert "CAT" in out and "normalize_stack" in out and "--- top ops ---" in out
     assert "traced; loss_source" in out and np.isfinite(got["loss_source"])
     assert os.path.getsize(got["trace"]) > 0
+    spans = got["spans"]
+    assert "--- spans (per step) ---" in out and "SPAN" in out and "upsample.backward" in out
+    assert list(spans)[:3] == ["train.iteration", "train.preprocess", "train.draws"]
+    assert spans["train.iteration"]["calls"] == 1 and spans["hha"]["calls"] == 2
+    assert spans["upsample"]["calls"] == spans["upsample.backward"]["calls"] == 8
+    assert {"mcd.step_a", "mcd.step_b", "mcd.step_c"} <= set(spans)
+    assert all(s["host_ms"] > 0 and s["device_ms"] is None for s in spans.values())
+    assert not any(r["name"].startswith("mcseg::train") for r in got["rows"])
+    assert got["counters"] == {}  # the CPU makes no host-to-card copy
 
 
 def test_profile_step_without_a_device_needs_a_card(tmp_path):

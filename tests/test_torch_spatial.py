@@ -149,6 +149,19 @@ def test_row_split_upsample_equals_the_unsplit_upsample(cases, mode):
         _close(g["dx"], _rows(dx, rank), f"rank {rank} {mode} input gradient")
 
 
+@pytest.mark.parametrize("mode,node", [("convt", "ConvolutionBackward0"),
+                                       ("resize", "UpsampleBilinear2DBackward0")])
+def test_row_split_upsample_spans_its_backward_and_the_halo(cases, mode, node):
+    """Under the profiler each rank's row-split upsample records one forward
+    and one backward ``upsample`` span in its root, and the backward span
+    holds the op's node and the halo exchange's backward."""
+    for r in cases["ranks"]:
+        spans = r[0]["upsample"][mode]["spans"]
+        (fwd_root, bwd_root) = (root for _, root in spans["records"])
+        assert [b for b, _ in spans["records"]] == [False, True] and fwd_root == bwd_root == 0
+        assert {node, "_HaloBackward"} <= set(spans["nodes"])
+
+
 def test_stem_pool_with_exact_zeros_equals_the_unsplit_pool(cases):
     x, probe = cases["stem_pool"]
     y, dx, _ = _unsplit(lambda t, _: stem_pool(t), x, probe)
