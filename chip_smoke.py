@@ -84,6 +84,12 @@ H100_L2_BYTES = 50 * 2**20
 COLD_BYTES = 3 * H100_L2_BYTES  # what a kernel timing rotates through
 KERNEL_SRC = "mcseg_tpu_torch/csrc/normalize_stack.cu"
 KERNEL_REPLACES = "mcseg_tpu/ops/pallas/normalize.py:84"
+UPSAMPLE_SRC = "mcseg_tpu_torch/csrc/upsample_convt.cu"
+# the heads' 8x upsample at the benchmark cells' shapes, [B, C, h, w] bf16
+# channels_last scores: DRN-D-38 RGB+HHA batch 24 and DRN-D-105 batch 16 at
+# 1024x512 in training, the served batch 8
+UPSAMPLE_CELLS = {"train_b24": (24, 40, 60, 80), "train_1024x512_b16": (16, 19, 64, 128),
+                  "serve_b8": (8, 40, 60, 80)}
 B, H, W = 8, 480, 640
 N_REQUESTS = 6  # the first one also warms cuDNN up
 TRAIN_WARMUP, TRAIN_TIMED = 2, 5  # MCD iterations
@@ -160,7 +166,7 @@ def phase_build():
     from mcseg_tpu_torch.utils.cuda_build import build
 
     t0 = time.perf_counter()
-    logs = build(["normalize_stack"])
+    logs = build(["normalize_stack", "upsample_convt"])
     secs = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]
@@ -235,6 +241,95 @@ def _kernel_case(input_ch, rgb_float, out_dtype, flip_pattern, seed=0):
     }
 
 
+def _ulps_over(got, want, mantissa_bits=7):
+    """The largest |got - want| in units of ``want``'s ulp (bf16 by
+    default); values below 2^-16 of the largest count against 2^-16 of the
+    largest, where float32 sums in another order move a value by more than
+    its own ulp."""
+    import torch
+
+    got, want = got.float(), want.float()
+    mag = want.abs()
+    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - mantissa_bits)
+    return float(((got - want).abs() / torch.maximum(ulp, mag.max() * 2.0 ** -16)).max())
+
+
+def _upsample_case(cell, shape, seed=3):
+    """The upsample kernels at one cell's shape, forward and backward: held
+    within 1 bf16 ulp of cuDNN's transposed conv and its autograd gradient
+    (the port's route before the kernels), then timed L2-cold beside their
+    byte bound, the plain version (the convolutions with taps already on
+    the card) and cuDNN's calls (``library_ms``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mcseg_tpu_torch.ops.upsample import (
+        _taps, _upsample_convt_backward_op, _upsample_convt_op, upsample_bilinear_convt)
+
+    factor, pads = 8, (4, 4)
+    b, c, h, w = shape
+    out_shape = (b, c, h * factor, w * factor)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cl = torch.channels_last
+
+    def make_set():
+        x = torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+        dy = torch.randn(out_shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+        return x.contiguous(memory_format=cl), dy.contiguous(memory_format=cl)
+
+    x, dy = make_set()
+    weight = _taps(x, factor)  # once, outside every timing
+
+    def plain_fwd(t):
+        return F.conv_transpose2d(t, weight, stride=factor, padding=pads, groups=c)
+
+    def plain_bwd(g):
+        return F.conv2d(g, weight, stride=factor, padding=pads, groups=c)
+
+    def library_bwd(g, t):  # what autograd ran for the transposed conv
+        return torch.ops.aten.convolution_backward(
+            g, t, weight, None, [factor] * 2, list(pads), [1, 1], True, [0, 0], c,
+            [True, False, False])[0]
+
+    before = (upsample_bilinear_convt.launches, upsample_bilinear_convt.backward_launches)
+    y = _upsample_convt_op(x, factor, *pads)
+    dx = _upsample_convt_backward_op(dy, factor, *pads)
+    torch.cuda.synchronize()
+    launches = (upsample_bilinear_convt.launches - before[0],
+                upsample_bilinear_convt.backward_launches - before[1])
+    ulps = (_ulps_over(y, plain_fwd(x)), _ulps_over(dx, library_bwd(dy, x)))
+    if launches != (1, 1) or max(ulps) > 1:
+        raise AssertionError(f"upsample_convt {cell}: launches {launches}, "
+                             f"bf16 ulps from cuDNN {ulps}")
+    rows = []
+    for direction, nbytes in (("forward", x.nbytes + y.nbytes), ("backward", dy.nbytes + dx.nbytes)):
+        sets = [(x, dy)] + [make_set() for _ in range(max(2, -(-COLD_BYTES // nbytes)) - 1)]
+        if direction == "forward":
+            fns = {"kernel": [lambda a=a: _upsample_convt_op(a[0], factor, *pads) for a in sets],
+                   "plain": [lambda a=a: plain_fwd(a[0]) for a in sets]}
+        else:
+            fns = {"kernel": [lambda a=a: _upsample_convt_backward_op(a[1], factor, *pads)
+                              for a in sets],
+                   "plain": [lambda a=a: plain_bwd(a[1]) for a in sets],
+                   "library": [lambda a=a: library_bwd(a[1], a[0]) for a in sets]}
+        ms = {k: gpu_time_ms(v, runs=20, per_run=4) for k, v in fns.items()}
+        ms.setdefault("library", ms["plain"])  # forward: one call, conv_transpose2d, is both
+        bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+        share = bound_ms / ms["kernel"]
+        if share > 1.05:
+            raise AssertionError(f"upsample_convt {direction} {cell}: {ms['kernel']} ms is "
+                                 f"{share:.2f}x its {bound_ms} ms bound; the timing is wrong")
+        rows.append({"direction": direction, "cell": cell, "shape": list(shape),
+                     "dtype": "bfloat16", "layout": "channels_last",
+                     "ulps_from_cudnn": ulps[direction == "backward"],
+                     "kernel_ms": ms["kernel"], "bound_ms": bound_ms, "bound_by": "bytes",
+                     "share_of_bound": share, "plain_ms": ms["plain"],
+                     "library_ms": ms["library"], "gb_per_s": nbytes / ms["kernel"] / 1e6,
+                     "bytes": nbytes, "cold_sets": len(sets)})
+        del sets, fns
+    return rows
+
+
 def phase_kernels():
     import torch
 
@@ -260,11 +355,15 @@ def phase_kernels():
     if c7["max_abs_err"] > 1e-6:
         raise AssertionError(f"normalize_stack input_ch=7: max abs err {c7['max_abs_err']}")
     cases.append(c7)
+    upsample = [r for cell, shape in UPSAMPLE_CELLS.items() for r in _upsample_case(cell, shape)]
+    torch.cuda.empty_cache()
     emit("kernels", kernels=[{"name": "fused_normalize_stack", "route": "cuda",
                               "source": KERNEL_SRC, "replaces": KERNEL_REPLACES,
-                              "shape": [B, H, W], "cases": cases}],
+                              "shape": [B, H, W], "cases": cases},
+                             {"name": "upsample_convt", "route": "cuda", "source": UPSAMPLE_SRC,
+                              "replaces": None, "cases": upsample}],
          comparison_launches=fused_normalize_stack.launches - before)
-    return main, train_case, c7
+    return main, train_case, c7, upsample
 
 
 def _serve_config(dtype):
@@ -347,6 +446,7 @@ def phase_serve(smi_line):
     from mcseg_tpu_torch.ops.normalize import (
         fused_normalize_stack, normalize_stack_reference)
     from mcseg_tpu_torch.ops.preprocess import make_eval_preprocess
+    from mcseg_tpu_torch.ops.upsample import upsample_bilinear_convt
 
     cfg = _serve_config("bfloat16")
     params = init_models(cfg.model, torch.Generator().manual_seed(0))
@@ -359,6 +459,7 @@ def phase_serve(smi_line):
     serve = make_serve_fn(cfg, params, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     fused_normalize_stack.launches = 0  # count only the main path from here
+    upsample_bilinear_convt.launches = upsample_bilinear_convt.backward_launches = 0
     times = []
     for i, req in enumerate(requests):
         torch.cuda.synchronize()
@@ -369,12 +470,17 @@ def phase_serve(smi_line):
         if fused_normalize_stack.launches != i + 1:
             raise AssertionError(f"request {i}: normalize kernel launched "
                                  f"{fused_normalize_stack.launches} times in total")
+        up = (upsample_bilinear_convt.launches, upsample_bilinear_convt.backward_launches)
+        if up != (i + 1, 0):
+            raise AssertionError(f"request {i}: upsample kernels launched {up} times "
+                                 "(forward, backward) in total")
         if tuple(pred.shape) != (B, H, W) or pred.dtype != torch.int32:
             raise AssertionError(f"pred {tuple(pred.shape)} {pred.dtype}")
         lo, hi = int(pred.min()), int(pred.max())
         if lo < 0 or hi >= cfg.model.n_class:
             raise AssertionError(f"pred values outside [0, {cfg.model.n_class}): {lo}..{hi}")
     launches = fused_normalize_stack.launches
+    upsample_launches = upsample_bilinear_convt.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     ms = statistics.median(times[1:])
 
@@ -408,13 +514,13 @@ def phase_serve(smi_line):
     breakdown = _breakdown(cfg, params, requests[1])
     emit("serve", net=cfg.model.net, input_ch=6, n_class=40, batch=B, hw=[H, W],
          dtype="bfloat16", requests=len(requests), launches=launches,
-         ms_per_request=ms, images_per_s=B / ms * 1e3,
+         upsample_launches=upsample_launches, ms_per_request=ms, images_per_s=B / ms * 1e3,
          ms_per_request_all=times, peak_mem_gb=peak_gb,
          fp32_stack_max_abs_err=stack_err, pred_agree_bf16_vs_fp32=agree_bf16_fp32,
          pred_agree_card_vs_cpu_small=agree_small,
          breakdown_ms=breakdown, card=smi_line,
          note="random weights; card numbers beside the card's name and power limit")
-    return launches
+    return launches, upsample_launches
 
 
 def phase_eval():
@@ -708,6 +814,7 @@ def phase_train(smi_line):
     from torch.utils.flop_counter import FlopCounterMode
 
     from mcseg_tpu_torch.ops.normalize import fused_normalize_stack
+    from mcseg_tpu_torch.ops.upsample import upsample_bilinear_convt
     from mcseg_tpu_torch.train.loops import make_adapt_iteration
     from mcseg_tpu_torch.train.state import create_train_state
 
@@ -721,6 +828,9 @@ def phase_train(smi_line):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fused_normalize_stack.launches = 0  # count only the main path from here
+    upsample_bilinear_convt.launches = upsample_bilinear_convt.backward_launches = 0
+    # both heads' upsample in step A (2), B (4, source and target) and C (2 per num_k)
+    upsample_per_iteration = 2 + 4 + 2 * cfg.train.num_k
     times, metrics = [], []
     for i in range(TRAIN_TIMED):
         torch.cuda.synchronize()
@@ -732,7 +842,14 @@ def phase_train(smi_line):
         if fused_normalize_stack.launches != 2 * (i + 1):
             raise AssertionError(f"iteration {i}: normalize kernel launched "
                                  f"{fused_normalize_stack.launches} times in total")
+        up = (upsample_bilinear_convt.launches, upsample_bilinear_convt.backward_launches)
+        if up != (upsample_per_iteration * (i + 1),) * 2:
+            raise AssertionError(f"iteration {i}: upsample kernels launched {up} times "
+                                 f"(forward, backward) in total, not {upsample_per_iteration} "
+                                 "each per iteration")
     launches = fused_normalize_stack.launches
+    upsample_launches = [upsample_bilinear_convt.launches,
+                         upsample_bilinear_convt.backward_launches]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     bad = [m for m in metrics if not all(math.isfinite(v) for v in m.values())]
     if bad:
@@ -754,7 +871,7 @@ def phase_train(smi_line):
     emit("train", net=cfg.model.net, input_ch=6, n_class=40, batch=B, hw=[H, W],
          dtype="bfloat16", num_k=cfg.train.num_k, upsample="convt",
          warmup=TRAIN_WARMUP, iterations=TRAIN_TIMED, launches=launches,
-         launches_per_iteration=launches / TRAIN_TIMED,
+         launches_per_iteration=launches / TRAIN_TIMED, upsample_launches=upsample_launches,
          ms_per_iteration=ms, ms_per_iteration_all=times,
          images_per_s=2 * B / ms * 1e3, peak_mem_gb=peak_gb, metrics=metrics,
          breakdown_ms=breakdown, profile=profile, trunk_tflop_per_iteration=trunk_tflop,
@@ -764,7 +881,7 @@ def phase_train(smi_line):
               "source plus target (2 x batch) per iteration; random weights")
     if failures:
         raise AssertionError(f"card vs CPU float32 iteration: {failures}")
-    return launches, ms
+    return launches, ms, upsample_launches
 
 
 def _multitask_loop(smi_line):
@@ -3499,12 +3616,12 @@ def main():
 
     smi_line = phase_env()
     phase_build()
-    main_case, train_case, c7_case = phase_kernels()
-    launches = phase_serve(smi_line)
+    main_case, train_case, c7_case, upsample_cases = phase_kernels()
+    launches, serve_upsample_launches = phase_serve(smi_line)
     if launches == 0:
         raise AssertionError("the serving path never launched fused_normalize_stack")
     phase_eval()
-    train_launches, staged_ms = phase_train(smi_line)
+    train_launches, staged_ms, train_upsample_launches = phase_train(smi_line)
     multitask_launches = phase_multitask(smi_line)
     cli_launches = phase_cli(smi_line)
     family_launches = phase_families(smi_line)
@@ -3532,7 +3649,13 @@ def main():
         "train_case_ms": train_case["kernel_ms"],
         "train_case_share_of_bound": train_case["share_of_bound"],
         "c7_case_ms": c7_case["kernel_ms"], "c7_case_bound_ms": c7_case["bound_ms"],
-        "c7_case_share_of_bound": c7_case["share_of_bound"]}]}), flush=True)
+        "c7_case_share_of_bound": c7_case["share_of_bound"]}, {
+        "name": "upsample_convt", "route": "cuda", "source": UPSAMPLE_SRC, "replaces": None,
+        "serve_launches": serve_upsample_launches, "serve_requests": N_REQUESTS,
+        "train_launches": train_upsample_launches, "train_iterations": TRAIN_TIMED,
+        "cases": [{k: r[k] for k in ("direction", "cell", "kernel_ms", "bound_ms",
+                                     "share_of_bound", "plain_ms", "library_ms")}
+                  for r in upsample_cases]}]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

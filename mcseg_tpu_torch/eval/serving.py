@@ -7,9 +7,10 @@ tester's inference core (``eval.tester.InferenceCore``), so serving and
 scoring cannot drift. ``export_serving`` freezes the whole path, raw planes
 -> preprocess (HHA and the normalize kernel included) -> trunk -> head ->
 argmax, into one ``torch.export`` program: parameters inside, static
-shapes, the kernel as the custom op ``mcseg::normalize_stack``. The file is
+shapes, the kernels as the custom ops ``mcseg::normalize_stack`` and
+``mcseg::upsample_convt`` (the heads' ``convt`` upsample). The file is
 ``torch.export.save`` of that program beside a ``.json`` manifest;
-``load_serving`` needs only this module (which registers the op) and
+``load_serving`` needs only this module (which registers the ops) and
 PyTorch.
 """
 
@@ -24,8 +25,10 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-# registers mcseg::normalize_stack, which an artifact's graph calls
+# register mcseg::normalize_stack and mcseg::upsample_convt, which an
+# artifact's graph calls
 import mcseg_tpu_torch.ops.normalize  # noqa: F401
+import mcseg_tpu_torch.ops.upsample  # noqa: F401
 from mcseg_tpu_torch.core.config import ExperimentConfig
 from mcseg_tpu_torch.core.device import compute_context, resolve_device
 from mcseg_tpu_torch.eval.tester import (

@@ -5,15 +5,16 @@
         [--out_shape H W] [--f1_only]
 
 Writes ``model.pt2`` (``torch.export.save`` of the exported program:
-parameters inside, static shapes, the normalize kernel as the custom op
-``mcseg::normalize_stack``) and ``model.pt2.json`` (the manifest: input
+parameters inside, static shapes, the normalize kernel and the heads'
+upsample as the custom ops ``mcseg::normalize_stack`` and
+``mcseg::upsample_convt``) and ``model.pt2.json`` (the manifest: input
 spec, device, torch version, outputs). Load it with:
 
     from mcseg_tpu_torch.eval.serving import load_serving
     pred = load_serving("model.pt2")({"image": uint8_batch, "depth": metres})
 
 An artifact exported for ``cuda`` runs on a card; one for ``cpu`` runs the
-kernel's plain version. See eval/serving.py.
+kernels' plain versions. See eval/serving.py.
 """
 
 from __future__ import annotations

@@ -38,7 +38,8 @@ The spans and where they open:
 
 and the counters: ``h2d_bytes`` and ``h2d_blocking``, the bytes of every
 host-to-card copy the program makes and the copies the host waits for
-(``core/device.py to_device``).
+(``core/device.py to_device``), and ``upsample_kernel``, each launch of the
+upsample's kernels, forward or backward (``ops/upsample.py``).
 """
 
 from __future__ import annotations

@@ -149,8 +149,9 @@ def test_row_split_upsample_equals_the_unsplit_upsample(cases, mode):
         _close(g["dx"], _rows(dx, rank), f"rank {rank} {mode} input gradient")
 
 
-@pytest.mark.parametrize("mode,node", [("convt", "ConvolutionBackward0"),
-                                       ("resize", "UpsampleBilinear2DBackward0")])
+@pytest.mark.parametrize("mode,node", [
+    ("convt", "GeneratedBackwardFor_mcseg_upsample_convt_defaultBackward"),
+    ("resize", "UpsampleBilinear2DBackward0")])
 def test_row_split_upsample_spans_its_backward_and_the_halo(cases, mode, node):
     """Under the profiler each rank's row-split upsample records one forward
     and one backward ``upsample`` span in its root, and the backward span
